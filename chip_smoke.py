@@ -8,12 +8,15 @@
 It builds every CUDA kernel from the sources in this checkout (one nvcc per
 source, all started together), holds each against its plain PyTorch version
 on the card, and drives the main path through the user-facing entry points
-(parse_file -> flatten -> Renderer -> render) on two generated museums at
-1024x1024: the small one (63,558 triangles), whose tables are single-level and go
-through kernel `traverse_wide`, and the 1,032,454-triangle one, whose tables
-are two-level and go through kernel `traverse_treelets`. The launch counts
-show that each render went through its kernel, and each render is compared
-with one made by the kernel's plain version. There is no fallback: without a
+(parse_file -> flatten -> Renderer -> render) on generated museums at
+1024x1024: the small one (63,558 triangles), whose BVH tables are single-level
+and go through kernel `traverse_wide`; the same museum with
+`Accelerator "kdtree"` and with `Accelerator "rbsp"` (3 directions), which
+go through kernel `traverse_kdbsp`; and the 1,032,454-triangle one, whose tables are two-level and go through kernel `traverse_treelets`.
+The launch counts show that each render went through its kernel, and each
+render is compared with one made by the kernel's plain version (on a
+256x256 crop in the middle of the image: the plain walkers take a second or
+more a traversal). There is no fallback: without a
 CUDA device, without the `tpupt_torch` package beside it, with a kernel that
 does not build, launch or agree, or with any failed check, it exits with a
 code other than 0 and prints no result line.
@@ -25,6 +28,7 @@ card's name and power limit, the `{"kernels": [...]}` line, and last
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -36,6 +40,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from tpupt_torch.accel import kdbsp
 from tpupt_torch.accel import traverse as trav
 from tpupt_torch.cameras.perspective import generate_rays
 from tpupt_torch.core.sampling import cosine_sample_hemisphere
@@ -43,11 +48,13 @@ from tpupt_torch.core.vecmath import offset_ray_origin
 from tpupt_torch.integrators.path import Renderer, shading_point
 from tpupt_torch.materials import bsdf as bx
 from tpupt_torch.native import get_lib as get_native_lib
+from tpupt_torch.ops import traverse_kdbsp as tk
 from tpupt_torch.ops import traverse_treelets as tt
 from tpupt_torch.ops import traverse_wide as tw
-from tpupt_torch.scene.device import build_scene_bvh, upload
+from tpupt_torch.scene.device import build_scene_bvh, upload, with_alt_accel
 from tpupt_torch.scene.flatten import flatten, with_resolution
 from tpupt_torch.scene.loader import parse_file, parse_string
+from tpupt_torch.scene.params import ParamSet
 from tpupt_torch.tools import genscene, testscenes
 from tpupt_torch.utils.build import BUILD_DIR, NVCC_FLAGS
 
@@ -55,8 +62,17 @@ ULP_LIMIT = 4            # t / b1 / b2 of kernel vs plain version, in ulps
 MAIN_RES = 1024
 MUSEUM_1M = dict(grid=8, seg=128, rings=64)      # 1,032,454 triangles
 MUSEUM_65K = dict(grid=4, seg=64, rings=32)      # 63,558 triangles
-SPP_1M = 4
+MUSEUM_1K = dict(grid=2, seg=16, rings=8)        # 1,028 triangles
+SPP_1M = 2
 SPP_65K = 2
+# the plain walkers render this crop of the image, the kernels too for the
+# comparison: 256x256 pixels in the middle, one batch a sample
+PLAIN_CROP = (0.375, 0.625, 0.375, 0.625)
+# kd-tree, restricted BSP with 3 / 7 / 13 directions, one tree with a
+# direction per node and one with kd nodes mixed in: (name, nbDirections)
+KD_TREES = [("kdtree", None), ("rbsp", 3), ("rbsp", 7), ("rbsp", 13),
+            ("bspcluster", 3), ("bsppaperkd", None)]
+KD_VS_BVH_MEAN_REL = 1e-3   # mean image of a kd / RBSP render against the BVH's
 N_CHECK_RAYS = 262144
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, float32 outside tensor cores
@@ -64,6 +80,9 @@ L2_FLUSH_BYTES = 256 * 1024 * 1024   # five times the card's 50 MB L2
 # bytes a kernel loads of a row it visits: 14 of a node row's 16 float4, 4 of
 # a triangle row's 8, 7 of a quadric row's 8; one int2 per treelet entered
 NODE_ROW_BYTES, TRI_ROW_BYTES, QUADRIC_ROW_BYTES, TREELET_REF_BYTES = 224, 64, 112, 8
+# a kd / BSP node is one 32-byte row: an interior step reads it whole, a leaf
+# step only its second half (leaf flag, first prim row, prim count)
+KD_NODE_ROW_BYTES, KD_LEAF_ROW_BYTES = 32, 16
 # per ray: tmax always (4 B), origin and direction when it is live (24 B);
 # t, b1, b2, gid, row id and three counters written (32 B)
 RAY_LIVE_BYTES, RAY_BYTES = 24, 4 + 32
@@ -73,18 +92,29 @@ RAY_LIVE_BYTES, RAY_BYTES = 24, 4 + 32
 # t_scaled 5, det 2, 3 z mul, 1 div, 3 mul, ~10 compares)
 OPS_PER_NODE = 8 * 30 + 19 * 5
 OPS_PER_PRIM = 65
+# one kd / BSP interior step: two 3-term projections (10), the plane distance
+# (1 sub, 1 abs, 1 compare, 1 div), the side test (3 compares) and the child
+# choice (5 compares)
+OPS_PER_KD_NODE = 22
 
 # every kernel of the main path: wrapper module, wrapper, plain version, the
 # tables it reads (in the order of the plain version's `touched` masks)
 KERNELS = {
     "traverse_wide": dict(
         mod=tw, call=tw.intersect_wide_cuda, plain=trav.intersect_wide,
-        tables=("wide_nodes", "prim_rows"),
+        tables=("wide_nodes", "prim_rows"), node_row_bytes=NODE_ROW_BYTES,
+        ops_per_node=OPS_PER_NODE,
         replaces="tpupt/ops/traverse_pallas.py:314"),
     "traverse_treelets": dict(
         mod=tt, call=tt.intersect_treelets_cuda, plain=trav.intersect_two_level,
         tables=("top_nodes", "tl_nodes", "tl_prims", "tl_offsets"),
+        node_row_bytes=NODE_ROW_BYTES, ops_per_node=OPS_PER_NODE,
         replaces="tpupt/ops/traverse_stream.py:51"),
+    "traverse_kdbsp": dict(
+        mod=tk, call=tk.intersect_kdbsp_cuda, plain=kdbsp.intersect_kdbsp,
+        tables=("alt_nodes", "alt_prim_rows"),
+        node_row_bytes=KD_NODE_ROW_BYTES, ops_per_node=OPS_PER_KD_NODE,
+        replaces="tpupt/ops/traverse_kdbsp.py:143"),
 }
 
 
@@ -172,9 +202,9 @@ def compare_hits(tag, kernel_out, plain_out, with_stats=True):
 def build_kernels():
     """Every kernel twice (as shipped, and with contraction of a*b+c allowed
     to record what the bit-exact build gives up; the latter is used for
-    timing only), all four nvcc runs started together."""
+    timing only), one nvcc run each, all started together."""
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=2 * len(KERNELS)) as pool:
         shipped = {k: pool.submit(v["mod"].build, ["-Xptxas", "-v"])
                    for k, v in KERNELS.items()}
         fmad = {k: pool.submit(
@@ -233,6 +263,7 @@ def drive(renderer, kind, spp):
     ms_per_spp = (time.time() - t0) * 1e3 / spp
     counts = {k: v["mod"].launches for k, v in KERNELS.items()}
     tw.check_stack_depth()
+    tk.check_stack_depth()
     for k, c in counts.items():
         want = expect if k == kind else 0
         if c != want:
@@ -251,14 +282,21 @@ def check_image(renderer, film, tag):
     return finite_share, mean_lum
 
 
-def against_plain_render(renderer, scene, tables, kind, dev):
-    """1 spp through the kernel against 1 spp through its plain version."""
+def against_plain_render(scene, tables, kind, dev):
+    """1 spp of the PLAIN_CROP window through the kernel against 1 spp of it
+    through the kernel's plain version, on the same tables."""
     plain_fn = KERNELS[kind]["plain"]
 
     def plain_isect(ds_, st_, o_, d_, tmax_, any_hit=False):
         return plain_fn(ds_, st_, o_, d_, tmax_, any_hit=any_hit)
 
+    scene = dataclasses.replace(
+        scene, film=dataclasses.replace(scene.film, crop=PLAIN_CROP))
+    renderer = Renderer(scene, device=dev, tables=tables)
+    before = KERNELS[kind]["mod"].launches
     img_k = renderer.image(renderer.render(spp=1))
+    if KERNELS[kind]["mod"].launches == before:
+        fail(f"the cropped render did not go through {kind}")
     t0 = time.time()
     plain_renderer = Renderer(scene, device=dev, tables=tables, isect=plain_isect)
     img_p = plain_renderer.image(plain_renderer.render(spp=1))
@@ -268,8 +306,52 @@ def against_plain_render(renderer, scene, tables, kind, dev):
                 / max(float(img_p.mean()), 1e-12))
     if not rel <= 1e-4:
         fail(f"{kind} render differs from its plain-version render: rel {rel}")
-    return {"plain_render_s": round(seconds, 1), "plain_vs_kernel_mean_rel": rel,
+    if not float(img_p.mean()) > 0.0:
+        fail(f"{kind}: the cropped plain-version render is black")
+    return {"plain_render_s": round(seconds, 1), "plain_render_crop": PLAIN_CROP,
+            "plain_vs_kernel_mean_rel": rel,
             "plain_vs_kernel_max_pixel_abs": float(np.abs(img_k - img_p).max())}
+
+
+def kd_params(ndirs):
+    ps = ParamSet()
+    if ndirs:
+        ps.add("integer nbDirections", [ndirs])
+    return ps
+
+
+def with_accelerator(scene, accel, ndirs=None):
+    """The flattened scene as if its file said `Accelerator "<accel>"`."""
+    return dataclasses.replace(scene, accelerator_name=accel,
+                               accelerator_params=kd_params(ndirs))
+
+
+def mean_rel(img_a, img_b) -> float:
+    """Largest channel difference of the two mean images over the mean."""
+    return float(np.abs(img_a.mean((0, 1)) - img_b.mean((0, 1))).max()
+                 / max(float(img_b.mean()), 1e-12))
+
+
+def thesis_row(renderer, film, ms_per_spp, spp) -> dict:
+    """The thesis's comparison of one accelerator on one scene: the tree and
+    what a camera ray costs in it (all bounces and shadow rays of its path,
+    from the film's AOVs)."""
+    st, ds = renderer.st, renderer.ds
+    aov = renderer.aovs(film)
+    row = dict(renderer.accel_stats)
+    if row["kind"] in ("bvh", "bvhold"):
+        row.update(n_wide_nodes=st.n_wide_nodes, max_leaf=st.max_leaf)
+        tables = (ds.wide_nodes, ds.prim_rows)
+    else:
+        tables = [getattr(ds, f) for f in ds._fields if f.startswith("alt_")]
+    row.update(
+        triangles=st.n_tris, spp=spp, ms_per_spp=ms_per_spp,
+        table_bytes_on_device=sum(t.numel() * t.element_size() for t in tables),
+        node_visits_per_camera_ray=float(aov["node_visits"].mean()),
+        leaf_visits_per_camera_ray=float(aov["leaf_visits"].mean()),
+        prim_tests_per_camera_ray=float(aov["prim_tests"].mean()),
+        path_length=float(aov["path_length"].mean()))
+    return row
 
 
 def main(argv) -> int:
@@ -346,15 +428,51 @@ def main(argv) -> int:
                         two_level=True)
         treelet_cases.append(("museum_65k", ds, st, o2, d2, tm2))
 
+        # kd / RBSP / BSP trees over the two small scenes and a small museum
+        # (camera + secondary rays, dead lanes among them)
+        sc1k = museum_scene(tmp, **MUSEUM_1K)
+        tables1k = upload(sc1k, light_strategy="spatial", device=dev)
+        kd_scenes = [
+            ("random_triangles", testscenes.random_triangles_pbrt(60, 0), None),
+            ("quadric_kinds", testscenes.quadric_kinds_pbrt(), None),
+            ("museum_1k", sc1k, tables1k)]
+        kd_cases, kd_trees = [], {}
+        t0 = time.time()
+        for label, sc, tables in kd_scenes:
+            if tables is None:
+                sc = flatten(parse_string(sc))
+                tables = upload(sc, light_strategy="spatial", device=dev)
+                rays = (o, d, inf_rays)
+            else:
+                rays = mixed_rays(with_resolution(sc, 512, 256), *tables, dev)
+            for accel, ndirs in KD_TREES:
+                nodes, dirs, _, stats = kdbsp.build_alt_accel(
+                    sc, accel, kd_params(ndirs))
+                name = f"{accel}{ndirs or ''}/{label}"
+                kd_cases.append((name, *with_alt_accel(*tables, nodes, dirs),
+                                 *rays))
+                kd_trees[name] = {k: stats[k] for k in (
+                    "n_nodes", "n_leaves", "max_leaf", "tree_depth")}
+        kd_small_builds_s = time.time() - t0
+
         check_cases("traverse_wide", wide_cases, checks)
         check_cases("traverse_treelets", treelet_cases, checks)
+        t0 = time.time()
+        check_cases("traverse_kdbsp", kd_cases, checks)
+        kd_checks_s = time.time() - t0
         tw.check_stack_depth()
+        tk.check_stack_depth()
         for tag in ("traverse_wide/quadric_kinds/closest/stats",
-                    "traverse_treelets/quadric_kinds_300/closest/stats"):
+                    "traverse_treelets/quadric_kinds_300/closest/stats",
+                    "traverse_kdbsp/kdtree/quadric_kinds/closest/stats",
+                    "traverse_kdbsp/bspcluster3/museum_1k/closest/stats"):
             if checks[tag]["hits"] < 1000:
                 fail(f"{tag}: hardly hit, the check is vacuous")
         emit({"phase": "kernels", "rays": N_CHECK_RAYS, "ulp_limit": ULP_LIMIT,
               "sah_build_upload_65k_s": round(sah_65k_s, 2),
+              "kd_trees_checked": kd_trees,
+              "kd_small_builds_s": round(kd_small_builds_s, 2),
+              "kd_checks_s": round(kd_checks_s, 1),
               "launches_during_checks": {k: v["mod"].launches
                                          for k, v in KERNELS.items()},
               "checks": checks})
@@ -380,7 +498,74 @@ def main(argv) -> int:
     r65 = Renderer(sc65, device=dev, tables=tables65)
     film65, ms65, counts65 = drive(r65, "traverse_wide", SPP_65K)
     fin65, lum65 = check_image(r65, film65, "museum_65k")
-    plain65 = against_plain_render(r65, sc65, tables65, "traverse_wide", dev)
+    plain65 = against_plain_render(sc65, tables65, "traverse_wide", dev)
+    thesis = [thesis_row(r65, film65, ms65, SPP_65K)]
+
+    # the same museum with `Accelerator "kdtree"` and `"rbsp"` (3 directions)
+    # -> traverse_kdbsp, through the normal entry point: Renderer uploads,
+    # builds the tree with the native builders and picks K2
+    img65 = r65.image(film65)
+    alt = {}
+    for accel, ndirs in (("kdtree", None), ("rbsp", 3)):
+        name = f"{accel}{ndirs or ''}"
+        sc_alt = with_accelerator(sc65, accel, ndirs)
+        t0 = time.time()
+        r_alt = Renderer(sc_alt, device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        if r_alt.accel_stats["kind"] != accel or r_alt.st.alt_tree_depth < 2:
+            fail(f"the {name} render has no such tree: {r_alt.accel_stats}")
+        film_alt, ms_alt, counts_alt = drive(r_alt, "traverse_kdbsp", SPP_65K)
+        fin_alt, lum_alt = check_image(r_alt, film_alt, f"museum_65k_{name}")
+        rel_bvh = mean_rel(r_alt.image(film_alt), img65)
+        if not rel_bvh <= KD_VS_BVH_MEAN_REL:
+            fail(f"{name} render differs from the BVH render: rel {rel_bvh}")
+        thesis.append(thesis_row(r_alt, film_alt, ms_alt, SPP_65K))
+        alt[name] = {
+            "renderer": r_alt, "scene": sc_alt, "launches": counts_alt,
+            "line": {
+                "triangles": r_alt.st.n_tris, "accelerator": name,
+                "tree": r_alt.accel_stats,
+                "upload_and_tree_build_s": round(setup_s, 2),
+                "spp": SPP_65K, "batches": r_alt.n_batches,
+                "ms_per_spp": ms_alt,
+                "camera_rays_per_s": MAIN_RES * MAIN_RES / (ms_alt * 1e-3),
+                "launches": counts_alt, "finite_pixel_share": fin_alt,
+                "mean_luminance": lum_alt, "mean_rel_to_bvh_render": rel_bvh,
+                "mean_rel_bound": KD_VS_BVH_MEAN_REL}}
+        del film_alt
+    rkd = alt["kdtree"]["renderer"]
+    alt["kdtree"]["line"].update(against_plain_render(
+        alt["kdtree"]["scene"], (rkd.ds, rkd.st), "traverse_kdbsp", dev))
+
+    # K2 at the main path's shape: the secondary rays of the middle camera
+    # batch of this museum through the kd-tree, with K1 on the same rays
+    # beside it
+    rays_kd = main_shape_rays(rkd, sc65, tables65, dev)
+    shape_kd = {
+        "rays": rkd.batch, "live_rays": int((rays_kd[2] > 0).sum()),
+        "traverse_kdbsp": main_shape_timing(
+            "traverse_kdbsp", (rkd.ds, rkd.st), rays_kd, fmad_libs,
+            "museum_65k_kdtree"),
+        "traverse_wide": main_shape_timing(
+            "traverse_wide", tables65, rays_kd, fmad_libs, "museum_65k")}
+    same = (shape_kd["traverse_kdbsp"].pop("prims"),
+            shape_kd["traverse_wide"].pop("prims"))
+    shape_kd["closest_prim_differs_between_kdtree_and_bvh"] = int(
+        (same[0] != same[1]).sum())
+    # and K2 on the same rays through the 3-direction RBSP tree, held against
+    # the plain walker at this size too
+    rr = alt["rbsp3"]["renderer"]
+    shape_kd["traverse_kdbsp_through_rbsp3"] = main_shape_timing(
+        "traverse_kdbsp", (rr.ds, rr.st), rays_kd, fmad_libs,
+        "museum_65k_rbsp3")
+    same_rbsp = shape_kd["traverse_kdbsp_through_rbsp3"].pop("prims")
+    shape_kd["closest_prim_differs_between_rbsp3_and_bvh"] = int(
+        (same_rbsp != same[1]).sum())
+    tk.check_stack_depth()
+    lines_alt = {f"museum_65k_{k}": v["line"] for k, v in alt.items()}
+    counts_kd = alt["kdtree"]["launches"]
+    del alt, rr, rkd
 
     # two-level tables -> traverse_treelets
     t0 = time.time()
@@ -399,10 +584,10 @@ def main(argv) -> int:
     film, ms_per_spp, counts = drive(renderer, "traverse_treelets", SPP_1M)
     finite_share, mean_lum = check_image(renderer, film, "museum_1m")
     aov = renderer.aovs(film)
-    plain1m = against_plain_render(renderer, scene, tables,
-                                   "traverse_treelets", dev)
+    plain1m = against_plain_render(scene, tables, "traverse_treelets", dev)
     main_launches = {"traverse_wide": counts65["traverse_wide"],
-                     "traverse_treelets": counts["traverse_treelets"]}
+                     "traverse_treelets": counts["traverse_treelets"],
+                     "traverse_kdbsp": counts_kd["traverse_kdbsp"]}
 
     # ---- each kernel at the main path's shape: one 131,072-ray batch of the
     # 1M museum, the same rays for both (single-level tables built for it)
@@ -414,9 +599,9 @@ def main(argv) -> int:
     rays = main_shape_rays(renderer, scene, tables_1l, dev)
     shape = {"rays": renderer.batch, "live_rays": int((rays[2] > 0).sum()),
              "traverse_wide": main_shape_timing(
-                 "traverse_wide", tables_1l, rays, fmad_libs),
+                 "traverse_wide", tables_1l, rays, fmad_libs, "museum_1m"),
              "traverse_treelets": main_shape_timing(
-                 "traverse_treelets", tables, rays, fmad_libs)}
+                 "traverse_treelets", tables, rays, fmad_libs, "museum_1m")}
     same = (shape["traverse_wide"].pop("prims"), shape["traverse_treelets"].pop("prims"))
     shape["closest_prim_differs_between_levels"] = int((same[0] != same[1]).sum())
     # the single-level kernel on the very tree the treelets were cut from
@@ -438,6 +623,8 @@ def main(argv) -> int:
               "camera_rays_per_s": MAIN_RES * MAIN_RES / (ms65 * 1e-3),
               "launches": counts65, "finite_pixel_share": fin65,
               "mean_luminance": lum65, **plain65},
+          **lines_alt,
+          "thesis_table": thesis,
           "museum_1m": {
               **MUSEUM_1M, "triangles": st.n_tris, "two_level": True,
               "wide_nodes": st.n_wide_nodes, "top_nodes": int(ds.top_nodes.shape[0]),
@@ -458,11 +645,14 @@ def main(argv) -> int:
               "mean_node_visits": float(aov["node_visits"].mean()),
               "mean_prim_tests": float(aov["prim_tests"].mean()),
               "mean_path_length": float(aov["path_length"].mean()), **plain1m},
-          "kernels_at_main_shape": shape})
+          "kernels_at_main_shape": shape,
+          "kernels_at_main_shape_museum_65k": shape_kd})
 
     kernels = []
+    shapes = {"traverse_wide": shape, "traverse_treelets": shape,
+              "traverse_kdbsp": shape_kd}
     for kind, spec in KERNELS.items():
-        sh = shape[kind]
+        sh = shapes[kind][kind]
         kernels.append({
             "name": kind, "route": "cuda",
             "source": f"tpupt_torch/csrc/{kind}.cu",
@@ -471,7 +661,10 @@ def main(argv) -> int:
             "max_abs_err": max(
                 [c["max_abs_err"] for tag, c in checks.items()
                  if tag.startswith(kind + "/") and isinstance(c, dict)]
-                + [sh["closest"]["max_abs_err"], sh["any"]["max_abs_err"]]),
+                + [sh["closest"]["max_abs_err"], sh["any"]["max_abs_err"]]
+                + ([shape_kd["traverse_kdbsp_through_rbsp3"][m]["max_abs_err"]
+                    for m in ("closest", "any")]
+                   if kind == "traverse_kdbsp" else [])),
             "ms": sh["closest"]["kernel_ms"],
             "plain_ms": sh["closest"]["plain_ms"],
             "bound_ms": sh["closest"]["bound_ms"],
@@ -479,7 +672,7 @@ def main(argv) -> int:
             "library_ms": None,
             "any_hit_ms": sh["any"]["kernel_ms"],
             "any_hit_bound_ms": sh["any"]["bound_ms"],
-            "rays_per_launch": shape["rays"],
+            "rays_per_launch": shapes[kind]["rays"],
             "tolerance": f"valid/prim/counters exact, t/b1/b2 <= {ULP_LIMIT} ulp",
         })
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
@@ -584,7 +777,7 @@ def main_shape_rays(renderer, scene, tables_1l, dev):
     return secondary_rays(ds, st, hit, o, d, 31)
 
 
-def main_shape_timing(kind, tables, rays, fmad_libs):
+def main_shape_timing(kind, tables, rays, fmad_libs, tag):
     """Kernel `kind`, its plain version and its bound on `rays` (closest
     hit) and on the same rays cut to half the scene's diagonal (any hit).
 
@@ -616,7 +809,7 @@ def main_shape_timing(kind, tables, rays, fmad_libs):
         plain = plain_fn(ds, st, o2, d2, tmax, any_hit=any_hit, touched=masks)
         torch.cuda.synchronize()
         plain_ms = (time.time() - t0) * 1e3
-        res = compare_hits(f"{kind}/museum_1m/{mode}", kernel, plain)
+        res = compare_hits(f"{kind}/{tag}/{mode}", kernel, plain)
         stats = kernel[1]
         nodes = int(stats.node_visits.sum())
         tests = int(stats.prim_tests.sum())
@@ -624,18 +817,26 @@ def main_shape_timing(kind, tables, rays, fmad_libs):
             rows = {"nodes": int(masks[0].sum()) + int(masks[1].sum()),
                     "treelets": int(masks[3].sum())}
             prim_mask = masks[2]
+        elif kind == "traverse_kdbsp":
+            # the plain walker marks interior and leaf rows alike; the row's
+            # own leaf flag tells them apart
+            is_leaf = ds.alt_nodes.view(torch.int32)[:, 4] != 0
+            rows = {"nodes": int((masks[0] & ~is_leaf).sum()),
+                    "leaves": int((masks[0] & is_leaf).sum()), "treelets": 0}
+            prim_mask = masks[1]
         else:
             rows = {"nodes": int(masks[0].sum()), "treelets": 0}
             prim_mask = masks[1]
         rows["triangles"] = int((prim_mask & is_tri).sum())
         rows["quadrics"] = int((prim_mask & ~is_tri).sum())
         live = int((tmax > 0).sum())
-        bytes_moved = (NODE_ROW_BYTES * rows["nodes"]
+        bytes_moved = (spec["node_row_bytes"] * rows["nodes"]
+                       + KD_LEAF_ROW_BYTES * rows.get("leaves", 0)
                        + TRI_ROW_BYTES * rows["triangles"]
                        + QUADRIC_ROW_BYTES * rows["quadrics"]
                        + TREELET_REF_BYTES * rows["treelets"]
                        + RAY_LIVE_BYTES * live + RAY_BYTES * n)
-        ops = OPS_PER_NODE * nodes + OPS_PER_PRIM * tests
+        ops = spec["ops_per_node"] * nodes + OPS_PER_PRIM * tests
         by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
         by_ops = ops / FP32_OPS_PER_S * 1e3
         lib_fmad = fmad_libs[kind]
@@ -648,10 +849,13 @@ def main_shape_timing(kind, tables, rays, fmad_libs):
                 ds, st, o2, d2, tmax, any_hit=any_hit, with_stats=False), 10),
             kernel_fmad_true_ms=time_ms(lambda: call(
                 ds, st, o2, d2, tmax, any_hit=any_hit, lib=lib_fmad), 10),
-            plain_ms=plain_ms, node_visits=nodes, prim_tests=tests,
+            plain_ms=plain_ms, node_visits=nodes,
+            leaf_visits=int(stats.leaf_visits.sum()), prim_tests=tests,
             distinct_rows_read=rows, bytes_moved_at_least=bytes_moved,
             bytes_if_every_visit_missed_cache=(
-                NODE_ROW_BYTES * nodes + TRI_ROW_BYTES * tests),
+                spec["node_row_bytes"] * nodes + TRI_ROW_BYTES * tests
+                + (KD_LEAF_ROW_BYTES * int(stats.leaf_visits.sum())
+                   if kind == "traverse_kdbsp" else 0)),
             float_ops=ops, bound_ms=max(by_bytes, by_ops),
             bound_by="bytes" if by_bytes >= by_ops else "operations")
         fm = call(ds, st, o2, d2, tmax, any_hit=any_hit, lib=lib_fmad)

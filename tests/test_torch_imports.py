@@ -39,6 +39,30 @@ def test_every_module_imports_without_jax_or_tpupt():
     assert "TRITON False" in out.stdout
 
 
+def test_the_kd_bsp_modules_are_among_them():
+    """The kd / RBSP / BSP slice: its walker, its kernel's wrapper and the
+    native builders import without building anything and without a card."""
+    names = set(_module_names())
+    assert {"tpupt_torch.accel.kdbsp", "tpupt_torch.ops.traverse_kdbsp",
+            "tpupt_torch.native"} <= names
+    code = (
+        "import sys\n"
+        "import tpupt_torch.native as n, tpupt_torch.ops.traverse_kdbsp as k\n"
+        "assert all(hasattr(n, f) for f in ('build_kdtree', 'build_rbsp', "
+        "'build_bsp', 'polytope_cut_area', 'build_bvh_sah'))\n"
+        "assert n._LIB is None and k._LIB is None and k.launches == 0\n"
+        "print('JAX', any(m.split('.')[0] in ('jax', 'jaxlib', 'tpupt') "
+        "for m in sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "JAX False" in out.stdout
+    for src in ("tpupt_torch/csrc/traverse_kdbsp.cu",
+                "tpupt_torch/native/builders.cpp"):
+        assert os.path.exists(os.path.join(ROOT, src)), src
+
+
 def _imported_roots(path):
     roots = set()
     for node in ast.walk(ast.parse(open(path).read())):

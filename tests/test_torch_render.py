@@ -150,19 +150,27 @@ def test_own_upload_renders_like_carried_tables(tmp_path):
 
 
 @pytest.mark.parametrize("what", ["integrator", "accelerator", "sampler"])
-def test_renderer_refuses_unported_configurations(what, tmp_path):
+def test_renderer_refuses_unported_configurations(what, tmp_path, monkeypatch):
     import dataclasses
 
+    from tpupt_torch.accel import kdbsp
+
     _, sc = _scenes("smoke", tmp_path)
+    refusal = pytest.raises(NotImplementedError, match="ROADMAP")
     if what == "integrator":
         sc = dataclasses.replace(
             sc, integrator=dataclasses.replace(sc.integrator, name="bdpt"))
     elif what == "accelerator":
+        # the kd / RBSP / BSP accelerators render; what is refused is a tree
+        # deeper than the traversal stack
         sc = dataclasses.replace(sc, accelerator_name="kdtree")
+        Renderer(sc, device="cpu")
+        monkeypatch.setattr(kdbsp, "KD_STACK", 3)
+        refusal = pytest.raises(ValueError, match="too deep")
     else:
         sc = dataclasses.replace(
             sc, sampler=dataclasses.replace(sc.sampler, name="sobol"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with refusal:
         Renderer(sc, device="cpu")
 
 

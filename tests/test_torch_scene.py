@@ -12,7 +12,8 @@ from tpupt.scene.device import upload as jax_upload
 from tpupt.scene.flatten import flatten as jax_flatten
 from tpupt.scene.loader import parse_file as jax_parse_file
 from tpupt.scene.loader import parse_string as jax_parse_string
-from tpupt_torch.scene.device import (TWO_LEVEL_FIELDS, DeviceScene,
+from tpupt_torch.scene.device import (ALT_FIELDS, ALT_STATICS,
+                                      TWO_LEVEL_FIELDS, DeviceScene,
                                       SceneStatics, from_numpy, upload)
 from tpupt_torch.scene.flatten import flatten
 from tpupt_torch.scene.loader import parse_file, parse_string
@@ -48,13 +49,18 @@ def test_upload_tables_array_equal(name, strategy, tmp_path):
     ds_j, st_j = jax_upload(sj, light_strategy=strategy)
     ds_t, st_t = upload(st_, light_strategy=strategy, device="cpu")
     for f in DeviceScene._fields:
-        if f in TWO_LEVEL_FIELDS:
+        if f in TWO_LEVEL_FIELDS + ALT_FIELDS:
             # one-row dummies here; tests/test_torch_treelets.py holds the
-            # two-level tables against the JAX package's
+            # two-level tables against the JAX package's,
+            # tests/test_torch_kdbsp_build.py the kd / RBSP / BSP trees
+            # (None in the JAX package's tables of a BVH scene)
             assert getattr(ds_t, f).shape[0] == 1, f
             continue
         _assert_same_bits(f, getattr(ds_j, f), getattr(ds_t, f).numpy())
     for f in SceneStatics._fields:
+        if f in ALT_STATICS:   # the port's own; the JAX Renderer keeps them
+            assert not getattr(st_t, f), f
+            continue
         assert getattr(st_j, f) == getattr(st_t, f), f
     assert st_j.two_level is False  # the JAX side took its single-level path
 
@@ -68,7 +74,9 @@ def test_from_numpy_carries_tables_across(tmp_path):
     for f in DeviceScene._fields:
         t = getattr(ds_t, f)
         assert isinstance(t, torch.Tensor) and t.device.type == "cpu"
-        if f not in TWO_LEVEL_FIELDS:  # rebuilt in this package's layout
+        if f in ALT_FIELDS:   # no tree in these tables: one-row dummies
+            assert t.shape[0] == 1, f
+        elif f not in TWO_LEVEL_FIELDS:  # rebuilt in this package's layout
             _assert_same_bits(f, fields[f], t.numpy())
     assert st_t.n_spheres == 7 and st_t.max_leaf == st_j.max_leaf
 

@@ -104,13 +104,19 @@ def _interior_step(row, mrow, is_int, o, inv_d, t_cur, stack, sp):
 
 
 def _leaf_step(prim_rows, prim_ints, st, is_leaf, l_first, l_count, o, d,
-               perm, rec, touched=None):
+               perm, rec, touched=None, max_leaf: int = None):
     """Test the prim rows l_first .. l_first + l_count of the lanes `is_leaf`
     against their rays. `rec` = [t_cur, gid, ridx, b1, b2, tests] is
-    replaced entry by entry (out of place) and returned."""
+    replaced entry by entry (out of place) and returned. The loop runs to
+    the wide BVH's `st.max_leaf`, or, for trees with fat leaves (kd-trees),
+    to the largest leaf some lane is in, at most `max_leaf`."""
     t_cur, gid, ridx, b1, b2, tests = rec
     n_rows = prim_rows.shape[0]
-    for k in range(st.max_leaf):
+    if max_leaf is None:
+        max_leaf = st.max_leaf
+    elif is_leaf.numel():
+        max_leaf = min(max_leaf, int(torch.where(is_leaf, l_count, 0).max()))
+    for k in range(max_leaf):
         valid = is_leaf & (k < l_count)
         idx = (l_first + k).clamp_max(n_rows - 1)
         prow = prim_rows[idx]   # (N, 32)

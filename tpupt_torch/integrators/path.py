@@ -12,8 +12,9 @@ shadow ray -> BSDF sample -> throughput update -> RR. Per-ray traversal
 counters accumulate into film AOVs (GeneralStats parity).
 
 Every traversal goes through the wrapper `pick_traversal` returns:
-`ops.traverse_wide.intersect_wide_cuda` for single-level tables,
-`ops.traverse_treelets.intersect_treelets_cuda` for two-level ones; each
+`ops.traverse_wide.intersect_wide_cuda` for single-level BVH tables,
+`ops.traverse_treelets.intersect_treelets_cuda` for two-level ones,
+`ops.traverse_kdbsp.intersect_kdbsp_cuda` for the kd / RBSP / BSP trees; each
 launches its CUDA kernel for tensors on a card and runs its plain PyTorch
 walker for CPU tensors.
 Rays are not sorted for coherence: one thread walks one ray, so the order of
@@ -31,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpupt_torch.accel import kdbsp
 from tpupt_torch.cameras.perspective import generate_rays
 from tpupt_torch.core.sampling import power_heuristic
 from tpupt_torch.core.spectrum import luminance
@@ -39,9 +41,10 @@ from tpupt_torch.core.vecmath import (absdot, cross, dot, normalize,
 from tpupt_torch.film import film as filmmod
 from tpupt_torch.lights.lights import emitted_radiance, pdf_li, sample_li
 from tpupt_torch.materials import bsdf as bx
-from tpupt_torch.ops import traverse_treelets, traverse_wide
+from tpupt_torch.ops import traverse_kdbsp, traverse_treelets, traverse_wide
 from tpupt_torch.samplers.samplers import WavefrontSampler
-from tpupt_torch.scene.device import DeviceScene, SceneStatics, upload
+from tpupt_torch.scene.device import (DeviceScene, SceneStatics, upload,
+                                      with_alt_accel)
 from tpupt_torch.scene.flatten import FlatScene
 from tpupt_torch.shapes.quadric import quadric_normal_uv
 from tpupt_torch.shapes.sphere import transform_normal
@@ -155,9 +158,13 @@ def miss_radiance_and_pdf(ds, st, d):
     return d.new_zeros((n, 3)), d.new_full((n,), 1.0 / (4.0 * math.pi))
 
 
-def pick_traversal(st: SceneStatics):
-    """The traversal wrapper for these tables: two-level tables go through
+def pick_traversal(st: SceneStatics, alt: bool = False):
+    """The traversal wrapper for these tables: with `alt` the kd / RBSP / BSP
+    tree goes through the kd/BSP kernel; else two-level BVH tables go through
     the treelet kernel, single-level ones through the wide-BVH kernel."""
+    if alt:
+        kdbsp.check_tree(st)
+        return traverse_kdbsp.intersect_kdbsp_cuda
     if st.two_level:
         return traverse_treelets.intersect_treelets_cuda
     return traverse_wide.intersect_wide_cuda
@@ -380,7 +387,15 @@ class Renderer:
     device="cuda" (the default) needs a card and raises without one; pass
     device="cpu" for the plain PyTorch path. `tables=(DeviceScene,
     SceneStatics)` renders from tables built elsewhere instead of calling
-    `upload` (the parity tests hand over the JAX package's tables)."""
+    `upload` (the parity tests hand over the JAX package's tables).
+
+    A scene whose accelerator is not `bvh` renders through a kd-tree
+    (`kdtree`), a restricted BSP (`rbsp`, "integer nbDirections" 3-13) or one
+    of the unrestricted-BSP family (`bsp...`), built here by the native
+    builders unless `tables` already carry one. `accel_stats` describes the
+    tree; `accel_nodes` / `accel_dirs` hold a tree built here as numpy
+    arrays for `accel.kdbsp.dump_tree` and `node_type_depth_maps`. A tree too
+    deep for the traversal stack raises."""
 
     def __init__(self, scene: FlatScene, device="cuda",
                  light_strategy: str = None, tables=None, isect=None):
@@ -389,22 +404,23 @@ class Renderer:
                 f"integrator {scene.integrator.name!r} is not in the PyTorch "
                 "port yet (ROADMAP.md queue 1, item 11)")
         accel = (scene.accelerator_name or "bvh").lower()
-        if accel not in ("bvh", "bvhold"):
-            raise NotImplementedError(
-                f"accelerator {accel!r} is not in the PyTorch port yet "
-                "(ROADMAP.md queue 1, item 9)")
         self.device = torch.device(device)
         self.scene = scene
         strategy = light_strategy or scene.integrator.light_strategy
         t0 = _time.time()
         self.ds, self.st = tables or upload(
             scene, light_strategy=strategy, device=self.device)
+        alt = accel not in ("bvh", "bvhold")
+        if alt:
+            self._set_alt_accel(accel)
+        else:
+            self.accel_stats = {"kind": "bvh", "n_nodes": self.st.n_nodes}
         self.upload_seconds = _time.time() - t0
         self.sampler = WavefrontSampler(
             scene.sampler.name, scene.film.xres, scene.film.yres,
             scene.sampler.spp, scene.sampler.seed)
         self.cfg = scene.film
-        self._isect = isect or pick_traversal(self.st)
+        self._isect = isect or pick_traversal(self.st, alt)
         self._shade_tables = (tri_shade_table(self.ds),
                               sph_shade_table(self.ds))
 
@@ -424,6 +440,22 @@ class Renderer:
         self._py_b = torch.from_numpy(pyf).to(self.device).reshape(nb, -1)
         self._valid_b = torch.from_numpy(valid).to(self.device).reshape(nb, -1)
         self._spp_rendered = 0
+
+    def _set_alt_accel(self, accel: str):
+        """The thesis kd / RBSP / BSP family (research-parity path): build the
+        tree, and keep it for the tree tools, unless the tables carry one."""
+        if self.st.alt_tree_depth > 0:
+            leaf = self.ds.alt_nodes.view(torch.int32)[:, 4] == 1
+            self.accel_stats = dict(
+                kind=accel, n_nodes=leaf.shape[0],
+                max_leaf=self.st.alt_max_leaf, n_leaves=int(leaf.sum()),
+                tree_depth=self.st.alt_tree_depth)
+            return
+        nodes, dirs, _, astats = kdbsp.build_alt_accel(
+            self.scene, accel, self.scene.accelerator_params)
+        self.ds, self.st = with_alt_accel(self.ds, self.st, nodes, dirs)
+        self.accel_stats = {"kind": accel, **astats}
+        self.accel_nodes, self.accel_dirs = nodes, dirs
 
     def _step(self, film, sample_idx, px_b, py_b, valid_b):
         """One batch of one sample: camera rays -> path_li -> film."""

@@ -90,9 +90,10 @@ def check_table(name, x, width, dtype, dev):
     _check(name, x, (x.shape[0] if x.dim() == 2 else -1, width), dtype, dev)
 
 
-def alloc_outputs(n, dev, with_stats):
+def alloc_outputs(n, dev, with_stats, overflow_ints=None):
     """Uninitialised (t, b1, b2, gid, ridx, nodes, leaves, tests) for a
-    launch, the overflow int of `dev`, and the counters' pointers (None
+    launch, the overflow int of `dev` (from `overflow_ints`, a dict by device
+    index; default: the BVH kernels'), and the counters' pointers (None
     without stats: the counters then come back as zeros)."""
     f32, i32 = torch.float32, torch.int32
     t, b1, b2 = (torch.empty(n, dtype=f32, device=dev) for _ in range(3))
@@ -104,9 +105,12 @@ def alloc_outputs(n, dev, with_stats):
     else:
         nodes = leaves = tests = torch.zeros(n, dtype=i32, device=dev)
         ptrs = [None, None, None]
-    deepest = _DEEPEST.get(dev.index)
+    if overflow_ints is None:
+        overflow_ints = _DEEPEST
+    deepest = overflow_ints.get(dev.index)
     if deepest is None:
-        deepest = _DEEPEST[dev.index] = torch.zeros(1, dtype=i32, device=dev)
+        deepest = overflow_ints[dev.index] = torch.zeros(1, dtype=i32,
+                                                         device=dev)
     return (t, b1, b2, gid, ridx, nodes, leaves, tests), deepest, ptrs
 
 
@@ -147,13 +151,18 @@ def intersect_wide_cuda(ds, st, o, d, tmax, any_hit: bool = False,
     return hit, trav.TraversalStats(nodes, leaves, tests)
 
 
-def check_stack_depth():
+def raise_on_overflow(overflow_ints, what: str, capacity: int):
     """Synchronise and raise if any ray since the last check needed a deeper
-    stack than the traversal kernels have (its walk then skipped nodes)."""
-    for index, deepest in _DEEPEST.items():
+    stack than `capacity` (its walk then skipped nodes)."""
+    for index, deepest in overflow_ints.items():
         v = int(deepest.item())
         if v:
             deepest.zero_()
             raise RuntimeError(
-                f"wide-BVH stack overflow on cuda:{index}: depth {v} > "
-                f"{trav.WIDE_STACK}")
+                f"{what} stack overflow on cuda:{index}: depth {v} > "
+                f"{capacity}")
+
+
+def check_stack_depth():
+    """`raise_on_overflow` for the two wide-BVH kernels."""
+    raise_on_overflow(_DEEPEST, "wide-BVH", trav.WIDE_STACK)

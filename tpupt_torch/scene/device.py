@@ -31,6 +31,10 @@ TWO_LEVEL_MIN_BYTES = 12 * 1024 * 1024
 # the two-level fields of DeviceScene (accel/treelets.py); one-row dummies
 # in a single-level scene
 TWO_LEVEL_FIELDS = ("top_nodes", "tl_nodes", "tl_prims", "tl_offsets")
+# the kd / RBSP / BSP fields of DeviceScene (accel/kdbsp.py); one-row dummies
+# in a scene without such a tree, whose ALT_STATICS are then 0 / False
+ALT_FIELDS = ("alt_prim_rows", "alt_nodes")
+ALT_STATICS = ("alt_max_leaf", "alt_tree_depth")
 
 
 class DeviceScene(NamedTuple):
@@ -68,6 +72,13 @@ class DeviceScene(NamedTuple):
     tl_nodes: torch.Tensor     # (sum Nt, 64) f32, treelet-local ids
     tl_prims: torch.Tensor     # (P, 32) f32 in treelet order
     tl_offsets: torch.Tensor   # (NT, 2) i32 first node row, first prim row
+    # kd / RBSP / BSP tree (accel/kdbsp.py); one-row dummies for a BVH scene.
+    # The plain walker and the CUDA kernel read the same two tables; the
+    # builders' flat arrays (array-equal to the JAX package's) stay on the
+    # host, `accel.kdbsp.node_rows` packs `alt_nodes` from them.
+    alt_prim_rows: torch.Tensor  # (P4, 32) f32 prim rows in leaf order
+    alt_nodes: torch.Tensor    # (K,8) f32 one 32-byte row a node: direction,
+    #                            split | leaf flag, above / first prim, nprims
     # materials
     mat_type: torch.Tensor
     mat_kd: torch.Tensor
@@ -143,6 +154,9 @@ class SceneStatics(NamedTuple):
     n_treelets: int = 0
     tl_tn: int = 0
     tl_tp: int = 0
+    # kd / RBSP / BSP tree: 0 levels = no such tables
+    alt_max_leaf: int = 0
+    alt_tree_depth: int = 0
 
 
 # statics that must be off in tables handed over from the JAX package: each
@@ -200,14 +214,12 @@ def pack_prim_rows(scene: FlatScene, prim_ids: np.ndarray) -> np.ndarray:
     return rows
 
 
-
 def _pad1(a: np.ndarray, fill=0):
     """Ensure at least one row so device gathers with clamped indices work."""
     if len(a) > 0:
         return a
     shape = (1,) + a.shape[1:]
     return np.full(shape, fill, a.dtype)
-
 
 
 SPATIAL_GRID_RES = 16
@@ -301,6 +313,12 @@ def _two_level_fields(tla) -> dict:
                 tl_prims=tla.tl_prims, tl_offsets=tla.tl_offsets)
 
 
+def _no_alt_fields() -> dict:
+    """The alt_* fields of a scene without a kd / RBSP / BSP tree."""
+    return dict(alt_prim_rows=np.zeros((1, 32), np.float32),
+                alt_nodes=np.zeros((1, 8), np.float32))
+
+
 def host_tables(scene: FlatScene, bvh: BVHArrays = None,
                 light_strategy: str = "uniform", two_level: bool = None,
                 treelet_budget: tuple = None):
@@ -367,7 +385,7 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
         sph_q1=_pad1(s.q1 if s.q1 is not None else np.zeros(s.count, f32)),
         sph_q2=_pad1(s.q2 if s.q2 is not None else np.zeros(s.count, f32)),
         wide_nodes=wide_nodes, prim_rows=prim_rows,
-        **_two_level_fields(tla),
+        **_two_level_fields(tla), **_no_alt_fields(),
         mat_type=m.type, mat_kd=m.kd, mat_ks=m.ks, mat_kr=m.kr, mat_kt=m.kt,
         mat_roughness=m.roughness, mat_urough=m.urough, mat_vrough=m.vrough,
         mat_eta=m.eta, mat_k=m.k, mat_sigma=m.sigma,
@@ -408,21 +426,23 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
     return fields, statics
 
 
+def _tensor(a, device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    elif a.dtype == np.int64:
+        a = a.astype(np.int32)
+    return torch.from_numpy(a.copy()).to(device)
+
+
 def _to_device(fields: dict, device) -> DeviceScene:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device='cuda' was asked for and no CUDA device is available; "
             "pass device='cpu' to run the plain PyTorch path")
-    out = {}
-    for name in DeviceScene._fields:
-        a = np.ascontiguousarray(fields[name])
-        if a.dtype == np.float64:
-            a = a.astype(np.float32)
-        elif a.dtype == np.int64:
-            a = a.astype(np.int32)
-        out[name] = torch.from_numpy(a.copy()).to(device)
-    return DeviceScene(**out)
+    return DeviceScene(**{name: _tensor(fields[name], device)
+                          for name in DeviceScene._fields})
 
 
 def upload(scene: FlatScene, bvh: BVHArrays = None,
@@ -436,14 +456,28 @@ def upload(scene: FlatScene, bvh: BVHArrays = None,
     return _to_device(fields, device), statics
 
 
+def with_alt_accel(ds: DeviceScene, st: SceneStatics, nodes: dict, dirs):
+    """(ds, st) with the kd / RBSP / BSP tree `nodes`, `dirs` of
+    accel/kdbsp.py `build_alt_accel` (of this package or, as numpy arrays, of
+    the JAX package) in the alt_* tables, on the device `ds` lies on."""
+    from tpupt_torch.accel.kdbsp import alt_tables
+
+    fields, statics = alt_tables(nodes, dirs)
+    dev = ds.world_lo.device
+    return (ds._replace(**{k: _tensor(v, dev) for k, v in fields.items()}),
+            st._replace(**statics))
+
+
 def from_numpy(ds_fields: dict, st_fields: dict, device="cuda"):
     """(DeviceScene, SceneStatics) from the JAX package's tables: every
     field of its DeviceScene as a numpy array and of its SceneStatics as a
     Python value. Fields only its TPU kernels read are dropped; its padded
     two-level tables are not read either: the treelets are cut again from
     the carried `wide_nodes` and `prim_rows` with the carried capacities,
-    which gives the same treelets in this package's layout. A static that
-    switches on a feature this package lacks raises."""
+    which gives the same treelets in this package's layout. Its kd / RBSP /
+    BSP tables (alt_flags ... alt_dirs, where its Renderer built them) are
+    carried as the node rows packed from them and the prim rows. A static that switches on a
+    feature this package lacks raises."""
     for name, off in _UNPORTED_STATICS.items():
         if st_fields.get(name, off) != off:
             raise NotImplementedError(
@@ -456,4 +490,14 @@ def from_numpy(ds_fields: dict, st_fields: dict, device="cuda"):
         tla = build_treelets(np.asarray(ds_fields["wide_nodes"]),
                              np.asarray(ds_fields["prim_rows"]),
                              statics.tl_tn, statics.tl_tp)
-    return _to_device({**ds_fields, **_two_level_fields(tla)}, device), statics
+    alt_fields = _no_alt_fields()
+    if ds_fields.get("alt_flags") is not None:
+        from tpupt_torch.accel.kdbsp import alt_tables
+
+        nodes = {k: ds_fields["alt_" + k] for k in
+                 ("flags", "split", "above", "nprims", "prim_rows", "ndir")
+                 if ds_fields.get("alt_" + k) is not None}
+        alt_fields, alt_statics = alt_tables(nodes, ds_fields["alt_dirs"])
+        statics = statics._replace(**alt_statics)
+    return _to_device({**ds_fields, **_two_level_fields(tla), **alt_fields},
+                      device), statics

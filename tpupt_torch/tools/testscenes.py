@@ -106,6 +106,38 @@ def triangle_clusters_pbrt(n_tris: int = 600, n_clusters: int = 12,
     return _wrap(p_str, i_str, sph)
 
 
+def accelerator_scene_pbrt(n_tris: int = 40, seed: int = 11) -> str:
+    """Two quads, two spheres and `n_tris` random triangles under a LookAt
+    camera: the scene the kd / RBSP / BSP accelerators are checked on."""
+    rng = np.random.default_rng(seed)
+    p_str, i_str = _triangle_soup(rng, n_tris, 0.5)
+    return f"""
+LookAt 3 2 4  0 0 0  0 1 0
+Camera "perspective" "float fov" [50]
+Film "image" "integer xresolution" [40] "integer yresolution" [40]
+WorldBegin
+Material "matte"
+Shape "trianglemesh" "point P" [-2 -1 0  2 -1 0  2 1 0  -2 1 0] "integer indices" [0 1 2 2 3 0]
+Shape "sphere" "float radius" [0.6]
+AttributeBegin
+  Translate 0.8 0.5 1.2
+  Shape "sphere" "float radius" [0.3]
+AttributeEnd
+Shape "trianglemesh" "point P" [-3 -3 -1  3 -3 -1  3 3 -1  -3 3 -1] "integer indices" [0 1 2 2 3 0]
+Shape "trianglemesh" "point P" [{p_str}] "integer indices" [{i_str}]
+WorldEnd
+"""
+
+
+# the twelve accelerator names of the kd / RBSP / BSP family with the
+# "integer nbDirections" each is checked with (None: the default)
+ALT_ACCELERATORS = [
+    ("kdtree", None), ("rbsp", 3), ("rbsp", 7), ("rbsp", 13),
+    ("bspcluster", 3), ("bsparbitrary", 4), ("bsprandom", 4),
+    ("bspclusterwithkd", 6), ("bsparbitraryfastkd", 6),
+    ("bsprandomwithkd", 6), ("bsppaper", None), ("bsppaperkd", None)]
+
+
 def aimed_rays(n: int, seed: int, lo, hi, radius: float = None):
     """(o, d) float32: origins on a sphere around the box [lo, hi], directions
     toward uniform targets inside it (random directions mostly miss)."""
