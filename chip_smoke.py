@@ -12,9 +12,13 @@ on the card, and drives the main path through the user-facing entry points
 1024x1024: the small one (63,558 triangles), whose BVH tables are single-level
 and go through kernel `traverse_wide`; the same museum with
 `Accelerator "kdtree"` and with `Accelerator "rbsp"` (3 directions), which
-go through kernel `traverse_kdbsp`; and the 1,032,454-triangle one, whose tables are two-level and go through kernel `traverse_treelets`.
-The launch counts show that each render went through its kernel, and each
-render is compared with one made by the kernel's plain version (on a
+go through kernel `traverse_kdbsp`; and the 1,032,454-triangle one, whose
+tables are two-level and go through kernel `traverse_treelets`, and a second
+time through the re-queue driver (`Renderer(..., isect=intersect_requeue)`),
+which runs kernels `bin_rays` and `walk_pairs` and, for rays whose treelet
+list overflowed, `traverse_treelets`.
+The launch counts show that each render went through its kernels, and each
+render is compared with one made by the kernels' plain versions (on a
 256x256 crop in the middle of the image: the plain walkers take a second or
 more a traversal). There is no fallback: without a
 CUDA device, without the `tpupt_torch` package beside it, with a kernel that
@@ -29,6 +33,7 @@ card's name and power limit, the `{"kernels": [...]}` line, and last
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -49,6 +54,7 @@ from tpupt_torch.integrators.path import Renderer, shading_point
 from tpupt_torch.materials import bsdf as bx
 from tpupt_torch.native import get_lib as get_native_lib
 from tpupt_torch.ops import traverse_kdbsp as tk
+from tpupt_torch.ops import traverse_requeue as tr
 from tpupt_torch.ops import traverse_treelets as tt
 from tpupt_torch.ops import traverse_wide as tw
 from tpupt_torch.scene.device import build_scene_bvh, upload, with_alt_accel
@@ -97,8 +103,13 @@ OPS_PER_PRIM = 65
 # choice (5 compares)
 OPS_PER_KD_NODE = 22
 
-# every kernel of the main path: wrapper module, wrapper, plain version, the
-# tables it reads (in the order of the plain version's `touched` masks)
+# the kernel sources, one nvcc run each (and one more with -fmad=true)
+SOURCES = {"traverse_wide": tw, "traverse_treelets": tt,
+           "traverse_kdbsp": tk, "traverse_requeue": tr}
+
+# every traversal kernel of the main path: wrapper module, wrapper, plain
+# version, the tables it reads (in the order of the plain version's
+# `touched` masks)
 KERNELS = {
     "traverse_wide": dict(
         mod=tw, call=tw.intersect_wide_cuda, plain=trav.intersect_wide,
@@ -116,6 +127,28 @@ KERNELS = {
         node_row_bytes=KD_NODE_ROW_BYTES, ops_per_node=OPS_PER_KD_NODE,
         replaces="tpupt/ops/traverse_kdbsp.py:143"),
 }
+
+
+# the two kernels of the re-queue traversal (one source, one library), and
+# how often each kernel launches in one call of its driver: K4 once, K5 once
+# a pass, K3 once for the rays whose list overflowed (tmax 0 on the others)
+REQUEUE_KERNELS = {"bin_rays": "tpupt/ops/traverse_requeue.py:65",
+                   "walk_pairs": "tpupt/ops/traverse_requeue.py:176"}
+REQUEUE_PER_CALL = {"bin_rays": 1, "walk_pairs": 2, "traverse_treelets": 1}
+# list capacities checked: the default, and 2, at which lists overflow and
+# the fallback through K3 takes over
+REQUEUE_R_LISTS = (tr.R_LIST, 2)
+# exact-t ties (a hit on an edge two triangles share, found in another order)
+# may pick the other prim; at most this share of the hits
+REQUEUE_TIE_SHARE = 1e-3
+REQUEUE_VS_K3_MEAN_REL = 1e-6   # mean image of the re-queue render against K3's
+# one top-tree step of bin_rays: 8 slab tests of 30 operations, no sort; it
+# writes an 8-byte (treelet, entry t) record per list slot and one count a ray
+OPS_PER_BIN_NODE = 8 * 30
+LIST_RECORD_BYTES = 8
+# per live pair of a walk_pairs launch: key and ray read (8 B), the record
+# written (t, b1, b2, gid, row id and three counters: 32 B)
+PAIR_BYTES = 8 + 32
 
 
 def fail(msg: str) -> None:
@@ -200,28 +233,58 @@ def compare_hits(tag, kernel_out, plain_out, with_stats=True):
 
 
 def build_kernels():
-    """Every kernel twice (as shipped, and with contraction of a*b+c allowed
-    to record what the bit-exact build gives up; the latter is used for
-    timing only), one nvcc run each, all started together."""
+    """Every kernel source twice (as shipped, and with contraction of a*b+c
+    allowed to record what the bit-exact build gives up; the latter is used
+    for timing only), one nvcc run each, all started together."""
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=2 * len(KERNELS)) as pool:
-        shipped = {k: pool.submit(v["mod"].build, ["-Xptxas", "-v"])
-                   for k, v in KERNELS.items()}
+    with ThreadPoolExecutor(max_workers=2 * len(SOURCES)) as pool:
+        shipped = {k: pool.submit(m.build, ["-Xptxas", "-v"])
+                   for k, m in SOURCES.items()}
         fmad = {k: pool.submit(
-            v["mod"].build, ["-fmad=true"],
+            m.build, ["-fmad=true"],
             os.path.join(BUILD_DIR, f"libtpupt_{k}_fmad.so"))
-            for k, v in KERNELS.items()}
+            for k, m in SOURCES.items()}
         logs = {k: f.result()[1] for k, f in shipped.items()}
-        fmad_libs = {k: KERNELS[k]["mod"].load(f.result()[0])
+        fmad_libs = {k: SOURCES[k].load(f.result()[0])
                      for k, f in fmad.items()}
-    for v in KERNELS.values():
-        v["mod"].get_lib()
-    ptxas = {}
-    for k, log in logs.items():
-        lines = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        ptxas[k] = lines[-2:]   # the <any_hit, has_spheres, with_stats> = all-true variant
-    return time.time() - t0, ptxas, fmad_libs
+    for m in SOURCES.values():
+        m.get_lib()
+    return time.time() - t0, {k: ptxas_lines(log) for k, log in logs.items()}, \
+        fmad_libs
+
+
+def ptxas_lines(log: str) -> dict:
+    """What `-Xptxas -v` says of each kernel's <any_hit, has_spheres,
+    with_stats> = all-true variant and of kernels without variants
+    (registers, stack frame, spills), by mangled entry name."""
+    out, entry = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+            entry = name if ("ILb" not in name or "Lb1ELb1ELb1E" in name) else None
+            if entry:
+                out[entry] = []
+        elif entry and ("registers" in ln or "spill" in ln):
+            out[entry].append(ln.strip().split(":", 1)[-1].strip())
+    return out
+
+
+def launch_counts() -> dict:
+    """Launches of every kernel since the counts were last set to 0."""
+    return {"traverse_wide": tw.launches, "traverse_treelets": tt.launches,
+            "traverse_kdbsp": tk.launches, **tr.launches}
+
+
+def zero_launches() -> None:
+    tw.launches = tt.launches = tk.launches = 0
+    for k in tr.launches:
+        tr.launches[k] = 0
+
+
+def check_stack_depths() -> None:
+    tw.check_stack_depth()
+    tk.check_stack_depth()
+    tr.check_stack_depth()
 
 
 def check_cases(kind, cases, checks):
@@ -247,27 +310,27 @@ def check_cases(kind, cases, checks):
                 checks[tag] = res
 
 
-def drive(renderer, kind, spp):
+def drive(renderer, per_call: dict, spp):
     """Render `spp` samples through the entry point with the launch counts
-    set to 0 just before and read just after. Returns (film, ms per spp,
-    launches of every kernel)."""
+    set to 0 just before and read just after; `per_call` says how often
+    each kernel launches in one traversal call (every other kernel must not
+    launch at all). Returns (film, ms per spp, launches of every kernel)."""
     depth = renderer.scene.integrator.max_depth
-    expect = 2 * (depth + 1) * renderer.n_batches * spp
+    calls = 2 * (depth + 1) * renderer.n_batches * spp
     renderer.render(spp=1)   # warm-up outside the counted run
     torch.cuda.synchronize()
-    for v in KERNELS.values():
-        v["mod"].launches = 0
+    zero_launches()
     t0 = time.time()
     film = renderer.render(spp=spp)
     torch.cuda.synchronize()
     ms_per_spp = (time.time() - t0) * 1e3 / spp
-    counts = {k: v["mod"].launches for k, v in KERNELS.items()}
-    tw.check_stack_depth()
-    tk.check_stack_depth()
+    counts = launch_counts()
+    check_stack_depths()
     for k, c in counts.items():
-        want = expect if k == kind else 0
+        want = calls * per_call.get(k, 0)
         if c != want:
-            fail(f"{kind} render launched {k} {c} times, expected {want}")
+            fail(f"render through {sorted(per_call)} launched {k} {c} times, "
+                 f"expected {want}")
     return film, ms_per_spp, counts
 
 
@@ -282,20 +345,24 @@ def check_image(renderer, film, tag):
     return finite_share, mean_lum
 
 
-def against_plain_render(scene, tables, kind, dev):
+def against_plain_render(scene, tables, kind, dev, isect=None,
+                         plain_isect=None):
     """1 spp of the PLAIN_CROP window through the kernel against 1 spp of it
-    through the kernel's plain version, on the same tables."""
-    plain_fn = KERNELS[kind]["plain"]
+    through the kernel's plain version, on the same tables. `isect` /
+    `plain_isect` replace the renderer's own traversal and kernel `kind`'s
+    plain version (for the re-queue driver and its plain mode)."""
+    if plain_isect is None:
+        plain_fn = KERNELS[kind]["plain"]
 
-    def plain_isect(ds_, st_, o_, d_, tmax_, any_hit=False):
-        return plain_fn(ds_, st_, o_, d_, tmax_, any_hit=any_hit)
+        def plain_isect(ds_, st_, o_, d_, tmax_, any_hit=False):
+            return plain_fn(ds_, st_, o_, d_, tmax_, any_hit=any_hit)
 
     scene = dataclasses.replace(
         scene, film=dataclasses.replace(scene.film, crop=PLAIN_CROP))
-    renderer = Renderer(scene, device=dev, tables=tables)
-    before = KERNELS[kind]["mod"].launches
+    renderer = Renderer(scene, device=dev, tables=tables, isect=isect)
+    before = launch_counts()[kind]
     img_k = renderer.image(renderer.render(spp=1))
-    if KERNELS[kind]["mod"].launches == before:
+    if launch_counts()[kind] == before:
         fail(f"the cropped render did not go through {kind}")
     t0 = time.time()
     plain_renderer = Renderer(scene, device=dev, tables=tables, isect=plain_isect)
@@ -458,14 +525,18 @@ def main(argv) -> int:
         check_cases("traverse_wide", wide_cases, checks)
         check_cases("traverse_treelets", treelet_cases, checks)
         t0 = time.time()
+        check_requeue(treelet_cases, checks)
+        requeue_checks_s = time.time() - t0
+        t0 = time.time()
         check_cases("traverse_kdbsp", kd_cases, checks)
         kd_checks_s = time.time() - t0
-        tw.check_stack_depth()
-        tk.check_stack_depth()
+        check_stack_depths()
         for tag in ("traverse_wide/quadric_kinds/closest/stats",
                     "traverse_treelets/quadric_kinds_300/closest/stats",
                     "traverse_kdbsp/kdtree/quadric_kinds/closest/stats",
-                    "traverse_kdbsp/bspcluster3/museum_1k/closest/stats"):
+                    "traverse_kdbsp/bspcluster3/museum_1k/closest/stats",
+                    "traverse_requeue/quadric_kinds_300/r16/closest",
+                    "traverse_requeue/museum_65k/r2/closest"):
             if checks[tag]["hits"] < 1000:
                 fail(f"{tag}: hardly hit, the check is vacuous")
         emit({"phase": "kernels", "rays": N_CHECK_RAYS, "ulp_limit": ULP_LIMIT,
@@ -473,8 +544,8 @@ def main(argv) -> int:
               "kd_trees_checked": kd_trees,
               "kd_small_builds_s": round(kd_small_builds_s, 2),
               "kd_checks_s": round(kd_checks_s, 1),
-              "launches_during_checks": {k: v["mod"].launches
-                                         for k, v in KERNELS.items()},
+              "requeue_checks_s": round(requeue_checks_s, 1),
+              "launches_during_checks": launch_counts(),
               "checks": checks})
         if quick:
             emit({"quick": True, "seconds": round(time.time() - t_start, 1)})
@@ -496,7 +567,7 @@ def main(argv) -> int:
 
     # single-level tables -> traverse_wide
     r65 = Renderer(sc65, device=dev, tables=tables65)
-    film65, ms65, counts65 = drive(r65, "traverse_wide", SPP_65K)
+    film65, ms65, counts65 = drive(r65, {"traverse_wide": 1}, SPP_65K)
     fin65, lum65 = check_image(r65, film65, "museum_65k")
     plain65 = against_plain_render(sc65, tables65, "traverse_wide", dev)
     thesis = [thesis_row(r65, film65, ms65, SPP_65K)]
@@ -515,7 +586,7 @@ def main(argv) -> int:
         setup_s = time.time() - t0
         if r_alt.accel_stats["kind"] != accel or r_alt.st.alt_tree_depth < 2:
             fail(f"the {name} render has no such tree: {r_alt.accel_stats}")
-        film_alt, ms_alt, counts_alt = drive(r_alt, "traverse_kdbsp", SPP_65K)
+        film_alt, ms_alt, counts_alt = drive(r_alt, {"traverse_kdbsp": 1}, SPP_65K)
         fin_alt, lum_alt = check_image(r_alt, film_alt, f"museum_65k_{name}")
         rel_bvh = mean_rel(r_alt.image(film_alt), img65)
         if not rel_bvh <= KD_VS_BVH_MEAN_REL:
@@ -562,7 +633,7 @@ def main(argv) -> int:
     same_rbsp = shape_kd["traverse_kdbsp_through_rbsp3"].pop("prims")
     shape_kd["closest_prim_differs_between_rbsp3_and_bvh"] = int(
         (same_rbsp != same[1]).sum())
-    tk.check_stack_depth()
+    check_stack_depths()
     lines_alt = {f"museum_65k_{k}": v["line"] for k, v in alt.items()}
     counts_kd = alt["kdtree"]["launches"]
     del alt, rr, rkd
@@ -581,13 +652,46 @@ def main(argv) -> int:
         fail("the 1,032,454-triangle museum should take two-level tables")
     table_bytes = sum(t.numel() * t.element_size() for t in ds)
     renderer = Renderer(scene, device=dev, tables=tables)
-    film, ms_per_spp, counts = drive(renderer, "traverse_treelets", SPP_1M)
+    film, ms_per_spp, counts = drive(renderer, {"traverse_treelets": 1}, SPP_1M)
     finite_share, mean_lum = check_image(renderer, film, "museum_1m")
     aov = renderer.aovs(film)
     plain1m = against_plain_render(scene, tables, "traverse_treelets", dev)
+
+    # the same tables through the re-queue driver -> bin_rays + walk_pairs,
+    # and traverse_treelets for the rays whose list overflowed
+    img1m = renderer.image(film)
+    r_rq = Renderer(scene, device=dev, tables=tables, isect=tr.intersect_requeue)
+    film_rq, ms_rq, counts_rq = drive(r_rq, REQUEUE_PER_CALL, SPP_1M)
+    fin_rq, lum_rq = check_image(r_rq, film_rq, "museum_1m_requeue")
+    rel_rq = mean_rel(r_rq.image(film_rq), img1m)
+    if not rel_rq <= REQUEUE_VS_K3_MEAN_REL:
+        fail(f"re-queue render differs from the K3 render: rel {rel_rq}")
+    aov_rq = r_rq.aovs(film_rq)
+    calls_rq = 2 * (scene.integrator.max_depth + 1) * r_rq.n_batches * SPP_1M
+    requeue_line = {
+        "isect": "ops.traverse_requeue.intersect_requeue", "spp": SPP_1M,
+        "traversal_calls": calls_rq, "ms_per_spp": ms_rq,
+        "camera_rays_per_s": MAIN_RES * MAIN_RES / (ms_rq * 1e-3),
+        "launches": counts_rq,
+        "launches_per_spp": {k: v // SPP_1M for k, v in counts_rq.items()},
+        "finite_pixel_share": fin_rq, "mean_luminance": lum_rq,
+        "mean_rel_to_traverse_treelets_render": rel_rq,
+        "mean_rel_bound": REQUEUE_VS_K3_MEAN_REL,
+        "max_pixel_abs_to_traverse_treelets_render": float(
+            np.abs(r_rq.image(film_rq) - img1m).max()),
+        "mean_node_visits": float(aov_rq["node_visits"].mean()),
+        "mean_prim_tests": float(aov_rq["prim_tests"].mean()),
+        **against_plain_render(
+            scene, tables, "bin_rays", dev, isect=tr.intersect_requeue,
+            plain_isect=functools.partial(tr._requeue, trav.bin_rays,
+                                          trav.walk_pairs,
+                                          trav.intersect_two_level))}
+    del film_rq, r_rq
     main_launches = {"traverse_wide": counts65["traverse_wide"],
                      "traverse_treelets": counts["traverse_treelets"],
-                     "traverse_kdbsp": counts_kd["traverse_kdbsp"]}
+                     "traverse_kdbsp": counts_kd["traverse_kdbsp"],
+                     "bin_rays": counts_rq["bin_rays"],
+                     "walk_pairs": counts_rq["walk_pairs"]}
 
     # ---- each kernel at the main path's shape: one 131,072-ray batch of the
     # 1M museum, the same rays for both (single-level tables built for it)
@@ -613,6 +717,15 @@ def main(argv) -> int:
             ds, st, rays[0], rays[1], rays[2]), 10),
         "any": time_ms(lambda: tw.intersect_wide_cuda(
             ds, st, rays[0], rays[1], cut, any_hit=True), 10)}
+    # K4 + K5 and the whole re-queue driver on the same rays, over the
+    # two-level tables; the driver against K3's hits on them
+    k3_hits = {"closest": tt.intersect_treelets_cuda(ds, st, *rays),
+               "any": tt.intersect_treelets_cuda(ds, st, rays[0], rays[1], cut,
+                                                 any_hit=True)}
+    shape["traverse_requeue"] = requeue_shape_timing(
+        tables, rays, fmad_libs["traverse_requeue"], "museum_1m", k3_hits)
+    del k3_hits
+    check_stack_depths()
     if with_profile:
         emit({"phase": "profile", **profile_one_spp(renderer)})
     emit({"phase": "main_path",
@@ -645,6 +758,7 @@ def main(argv) -> int:
               "mean_node_visits": float(aov["node_visits"].mean()),
               "mean_prim_tests": float(aov["prim_tests"].mean()),
               "mean_path_length": float(aov["path_length"].mean()), **plain1m},
+          "museum_1m_requeue": requeue_line,
           "kernels_at_main_shape": shape,
           "kernels_at_main_shape_museum_65k": shape_kd})
 
@@ -675,6 +789,26 @@ def main(argv) -> int:
             "rays_per_launch": shapes[kind]["rays"],
             "tolerance": f"valid/prim/counters exact, t/b1/b2 <= {ULP_LIMIT} ulp",
         })
+    rq = shape["traverse_requeue"]
+    for kind, replaces in REQUEUE_KERNELS.items():
+        sh = rq["closest"][kind]
+        kernels.append({
+            "name": kind, "route": "cuda",
+            "source": "tpupt_torch/csrc/traverse_requeue.cu",
+            "replaces": replaces, "launches": main_launches[kind],
+            "max_abs_err": max(
+                [c["max_abs_err"][kind] for tag, c in checks.items()
+                 if tag.startswith("traverse_requeue/")]
+                + [sh["max_abs_err"], rq["any"][kind]["max_abs_err"]]),
+            "ms": sh["kernel_ms"], "plain_ms": sh["plain_ms"],
+            "bound_ms": sh["bound_ms"], "bound_by": sh["bound_by"],
+            "library_ms": None,
+            "any_hit_ms": rq["any"][kind]["kernel_ms"],
+            "any_hit_bound_ms": rq["any"][kind]["bound_ms"],
+            "rays_per_launch": shape["rays"],
+            "per": ("one launch" if kind == "bin_rays"
+                    else "one driver call: pass 0 + pass 1, two launches"),
+            "tolerance": "every output equal to the bit"})
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     print(card_line, flush=True)
     emit({"kernels": kernels})
@@ -682,6 +816,44 @@ def main(argv) -> int:
           "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                      "count": torch.cuda.device_count()}})
     return 0
+
+
+def device_rows(prof):
+    """(kernel name, device ms, launches) of a torch.profiler run, longest
+    first. Kernel rows only: the profiler also credits each kernel's time to
+    the operator that launched it, and summing both would count it twice."""
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        on_device = str(getattr(e, "device_type", "")).upper().endswith("CUDA")
+        if dev_us > 0 and on_device:
+            rows.append((e.key, dev_us / 1e3, e.count))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def profile_call(fn):
+    """Device time by kernel name over one call of `fn` (after one warm-up
+    call), from torch.profiler: how much of a re-queue driver call its
+    kernels take and how much the PyTorch work between them. "not measured"
+    where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    if not rows:
+        return "not measured"
+    ours = [r for r in rows if any(k in r[0] for k in (
+        "bin_rays_kernel", "walk_pairs_kernel", "traverse_treelets_kernel"))]
+    return {"device_ms": sum(r[1] for r in rows),
+            "device_launches": sum(r[2] for r in rows),
+            "hand_written_kernels_ms": sum(r[1] for r in ours),
+            "by_kernel": [{"name": r[0][:70], "ms": r[1], "launches": r[2]}
+                          for r in rows[:12]]}
 
 
 def profile_one_spp(renderer):
@@ -696,18 +868,9 @@ def profile_one_spp(renderer):
         renderer.render(spp=1)
         torch.cuda.synchronize()
     wall_ms = (time.time() - t0) * 1e3
-    # kernel rows only: the profiler also credits each kernel's time to the
-    # operator that launched it, and summing both would count it twice
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        on_device = str(getattr(e, "device_type", "")).upper().endswith("CUDA")
-        if dev_us > 0 and on_device:
-            rows.append((e.key, dev_us / 1e3, e.count))
+    rows = device_rows(prof)
     if not rows:
         fail("torch.profiler recorded no device time")
-    rows.sort(key=lambda r: -r[1])
     dev_ms = sum(r[1] for r in rows)
     walk = [r for r in rows if "traverse_" in r[0] and "_kernel" in r[0]]
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": dev_ms,
@@ -865,6 +1028,256 @@ def main_shape_timing(kind, tables, rays, fmad_libs, tag):
         out[mode] = res
         if mode == "closest":
             out["prims"] = kernel[0].prim
+    return out
+
+
+def as_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def check_bits(tag, names, kernel, plain) -> float:
+    """Kernel K4 / K5 against its plain version: every output equal to the
+    bit; fails the run otherwise. Returns the largest |kernel - plain| over
+    the outputs (0.0 where all bits agree)."""
+    bad = [nm for nm, a, b in zip(names, kernel, plain)
+           if a.shape != b.shape or not torch.equal(as_bits(a), as_bits(b))]
+    if bad:
+        fail(f"{tag}: kernel and plain version differ in {bad}")
+    return max((float(torch.where(as_bits(a) == as_bits(b), 0.0,
+                                  (a.double() - b.double()).abs()).max())
+                for a, b in zip(kernel, plain) if a.numel()), default=0.0)
+
+
+def checked_requeue(ds, st, o, d, tmax, r_list, any_hit, tag, touched=None):
+    """One closest / any hit call of the re-queue driver's own pass loop
+    (`tr._requeue`, what `intersect_requeue` runs) with checking wrappers in
+    place of K4 and K5: each launches its kernel, runs the plain version on
+    the same inputs, holds the two bit for bit (K5 also without counters)
+    and hands the kernel's result on. `touched` = {"top": [...], "treelets":
+    [...]} takes the plain versions' row marks. Returns (the driver's (Hit,
+    stats), K4's lists, one dict a pass with K5's inputs and records and its
+    live pairs, the plain versions' ms, the largest |kernel - plain| of each
+    kernel)."""
+    lists, passes = [], []
+    plain_ms = {"bin_rays": 0.0, "walk_pairs": []}
+    err = {"bin_rays": 0.0, "walk_pairs": 0.0}
+
+    def plain_timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.time() - t0) * 1e3
+
+    def bin_fn(ds, st, o, d, tmax, r_list):
+        out = tr.bin_rays_cuda(ds, st, o, d, tmax, r_list)
+        plain, plain_ms["bin_rays"] = plain_timed(lambda: trav.bin_rays(
+            ds, st, o, d, tmax, r_list, touched=touched and touched["top"]))
+        err["bin_rays"] = max(err["bin_rays"], check_bits(
+            f"{tag}/bin_rays", ("tid", "tnear", "ovf"), out, plain))
+        lists.append(out)
+        return out
+
+    def walk(ds, st, o, d, key, ray, t_in, any_hit):
+        rec = tr.walk_pairs_cuda(ds, st, o, d, key, ray, t_in, any_hit=any_hit)
+        plain, ms = plain_timed(lambda: trav.walk_pairs(
+            ds, st, o, d, key, ray, t_in, any_hit=any_hit,
+            touched=touched and touched["treelets"]))
+        plain_ms["walk_pairs"].append(ms)
+        ptag = f"{tag}/walk_pairs/pass{len(passes)}"
+        bare = tr.walk_pairs_cuda(ds, st, o, d, key, ray, t_in,
+                                  any_hit=any_hit, with_stats=False)
+        err["walk_pairs"] = max(
+            err["walk_pairs"],
+            check_bits(ptag, trav.PairRecords._fields, rec, plain),
+            check_bits(ptag + "/nostats", trav.PairRecords._fields[:5],
+                       bare[:5], plain[:5]))
+        live = key < trav.pair_sentinel(st)
+        passes.append(dict(key=key, ray=ray, t_in=t_in, rec=rec,
+                           live_pairs=int(live.sum()),
+                           rays_with_pairs=int(torch.unique(ray[live]).numel())))
+        return rec
+
+    out = tr._requeue(bin_fn, walk, functools.partial(
+        tt.intersect_treelets_cuda, with_stats=False), ds, st, o, d, tmax,
+        any_hit=any_hit, r_list=r_list)
+    direct = tr.intersect_requeue(ds, st, o, d, tmax, any_hit=any_hit,
+                                  r_list=r_list)
+    check_bits(f"{tag}/intersect_requeue", trav.Hit._fields
+               + trav.TraversalStats._fields, [*direct[0], *direct[1]],
+               [*out[0], *out[1]])
+    return out, lists[0], passes, plain_ms, err
+
+
+def compare_requeue(tag, out, ref, any_hit, n_tris):
+    """The re-queue driver's (Hit, stats) against the two-level walker's
+    (or K3's, which equals it to the bit): valid equal everywhere; closest
+    hit: t equal to the bit on every hit, and p_obj and the b1 / b2 of
+    triangle hits where the prim is the same (a quadric hit leaves b1 / b2
+    at whatever an earlier triangle hit of the same walk wrote, and the
+    walks differ); another prim at exactly the same t is an exact-t tie
+    (counted), allowed on at most REQUEUE_TIE_SHARE of the hits; any hit: t
+    0 on every hit; `truncated` zero. Fails the run otherwise."""
+    (hk, sk), (hp, _) = out, ref
+    both = hk.valid & hp.valid
+    res = dict(valid_mismatch=int((hk.valid != hp.valid).sum()),
+               hits=int(hp.valid.sum()), truncated=int(sk.truncated.sum()))
+    bad = res["valid_mismatch"] or res["truncated"]
+    if any_hit:
+        res["nonzero_t_on_hits"] = int((hk.t[hk.valid] != 0).sum())
+        bad = bad or res["nonzero_t_on_hits"]
+    else:
+        same = both & (hk.prim == hp.prim)
+        tri = same & (hp.prim < n_tris)
+        res["record_mismatch"] = sum(
+            int((as_bits(getattr(hk, f)) != as_bits(getattr(hp, f)))[m].sum())
+            for f, m in (("t", both), ("b1", tri), ("b2", tri))) + int(
+            (as_bits(hk.p_obj) != as_bits(hp.p_obj)).any(-1)[same].sum())
+        res["exact_t_ties"] = int((both & (hk.prim != hp.prim)).sum())
+        bad = (bad or res["record_mismatch"]
+               or res["exact_t_ties"] > REQUEUE_TIE_SHARE * res["hits"])
+    if bad:
+        fail(f"re-queue driver disagrees with the two-level walker on {tag}: "
+             f"{res}")
+    return res
+
+
+def check_requeue(cases, checks):
+    """K4 and K5 against their plain versions, and the whole driver against
+    the two-level walker, on each case, closest and any hit, at each list
+    capacity of REQUEUE_R_LISTS; fails the run on any miss."""
+    for name, ds, st, o, d, tmax in cases:
+        for r_list in REQUEUE_R_LISTS:
+            for any_hit in (False, True):
+                mode = "any" if any_hit else "closest"
+                tag = f"traverse_requeue/{name}/r{r_list}/{mode}"
+                out, lists, passes, plain_ms, err = checked_requeue(
+                    ds, st, o, d, tmax, r_list, any_hit, tag)
+                ref = trav.intersect_two_level(ds, st, o, d, tmax,
+                                               any_hit=any_hit)
+                res = compare_requeue(tag, out, ref, any_hit, st.n_tris)
+                res.update(
+                    max_abs_err=err,
+                    overflowed_rays=int((lists[2] > 0).sum()),
+                    live_pairs=[p["live_pairs"] for p in passes],
+                    plain_ms=plain_ms,
+                    bin_rays_ms=time_ms(lambda: tr.bin_rays_cuda(
+                        ds, st, o, d, tmax, r_list), 5),
+                    walk_pairs_ms=[time_ms(
+                        lambda p=p: tr.walk_pairs_cuda(
+                            ds, st, o, d, p["key"], p["ray"], p["t_in"],
+                            any_hit=any_hit), 5) for p in passes],
+                    driver_ms=time_ms(lambda: tr.intersect_requeue(
+                        ds, st, o, d, tmax, any_hit=any_hit,
+                        r_list=r_list), 5))
+                if r_list < tr.R_LIST and not res["overflowed_rays"]:
+                    fail(f"{tag}: no list overflowed, the fallback never ran")
+                checks[tag] = res
+
+
+def requeue_shape_timing(tables, rays, fmad_lib, tag, k3_hits):
+    """K4, K5 (both passes of one driver call) and the whole driver on
+    `rays` (closest hit) and on the same rays cut to half the scene's
+    diagonal (any hit), against their plain versions and, for the driver,
+    against K3's hits on the same rays (`k3_hits`, by mode).
+
+    bound_ms is built as in main_shape_timing: for K4 the distinct top rows
+    the plain version reads, the rays read and the lists written, against
+    its top-tree steps; for K5 the distinct treelet node rows, prim rows and
+    offsets the plain version reads over both passes, and in each pass the
+    live pairs read and written and their rays' origin, direction and start
+    t read, against the node steps and prim tests of both passes. The
+    records of the dead pair slots that a launch over every slot also writes
+    are work the walk does not need: `dead_pair_bytes`, not in the bound."""
+    ds, st = tables
+    o2, d2, tmax2 = rays
+    n, dev = o2.shape[0], o2.device
+    is_tri = ds.tl_prims.view(torch.int32)[:, 17] == 1
+    half = float(torch.linalg.norm(ds.world_hi - ds.world_lo)) * 0.5
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    out = {}
+    for mode, any_hit, tmax in (
+            ("closest", False, tmax2),
+            ("any", True, torch.where(tmax2 > 0, half, 0.0).contiguous())):
+        touched = {
+            "top": [torch.zeros(ds.top_nodes.shape[0], dtype=torch.bool,
+                                device=dev),
+                    torch.zeros(1, dtype=torch.int64, device=dev)],
+            "treelets": [torch.zeros(t.shape[0], dtype=torch.bool, device=dev)
+                         for t in (ds.tl_nodes, ds.tl_prims, ds.tl_offsets)]}
+        drv, lists, passes, plain_ms, err = checked_requeue(
+            ds, st, o2, d2, tmax, tr.R_LIST, any_hit, f"{tag}/{mode}", touched)
+        res = {"driver_vs_traverse_treelets": compare_requeue(
+            f"{tag}/{mode}", drv, k3_hits[mode], any_hit, st.n_tris)}
+        live = int((tmax > 0).sum())
+        top_rows, steps = int(touched["top"][0].sum()), int(touched["top"][1])
+        bin_bytes = (NODE_ROW_BYTES * top_rows + RAY_LIVE_BYTES * live + 4 * n
+                     + (LIST_RECORD_BYTES * tr.R_LIST + 4) * n)
+        bin_ops = OPS_PER_BIN_NODE * steps
+        node_mask, prim_mask, tl_mask = touched["treelets"]
+        nodes = sum(int(p["rec"].node_visits.sum()) for p in passes)
+        tests = sum(int(p["rec"].prim_tests.sum()) for p in passes)
+        walk_bytes = (NODE_ROW_BYTES * int(node_mask.sum())
+                      + TRI_ROW_BYTES * int((prim_mask & is_tri).sum())
+                      + QUADRIC_ROW_BYTES * int((prim_mask & ~is_tri).sum())
+                      + TREELET_REF_BYTES * int(tl_mask.sum())
+                      + sum(PAIR_BYTES * p["live_pairs"]
+                            + (4 + RAY_LIVE_BYTES) * p["rays_with_pairs"]
+                            for p in passes))
+        # what the launch over every pair slot moves beyond that: the dead
+        # slots' key and ray read and empty record written
+        dead_pair_bytes = sum(PAIR_BYTES * (p["key"].shape[0] - p["live_pairs"])
+                              for p in passes)
+        walk_ops = OPS_PER_NODE * nodes + OPS_PER_PRIM * tests
+
+        def bound(nbytes, ops):
+            by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            by_ops = ops / FP32_OPS_PER_S * 1e3
+            return dict(bytes_moved_at_least=nbytes, float_ops=ops,
+                        bound_ms=max(by_bytes, by_ops),
+                        bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+        def walk(p, **kw):
+            return tr.walk_pairs_cuda(ds, st, o2, d2, p["key"], p["ray"],
+                                      p["t_in"], any_hit=any_hit, **kw)
+
+        res["bin_rays"] = dict(
+            kernel_ms=time_ms(lambda: tr.bin_rays_cuda(ds, st, o2, d2, tmax), 10),
+            kernel_cold_l2_ms=time_cold_ms(
+                lambda: tr.bin_rays_cuda(ds, st, o2, d2, tmax), 10, flush),
+            kernel_fmad_true_ms=time_ms(lambda: tr.bin_rays_cuda(
+                ds, st, o2, d2, tmax, lib=fmad_lib), 10),
+            plain_ms=plain_ms["bin_rays"], top_node_steps=steps,
+            distinct_top_rows=top_rows,
+            overflowed_share=float((lists[2] > 0).sum()) / max(live, 1),
+            max_abs_err=err["bin_rays"], **bound(bin_bytes, bin_ops))
+        per_pass = [time_ms(lambda p=p: walk(p), 10) for p in passes]
+        res["walk_pairs"] = dict(
+            kernel_ms=sum(per_pass), kernel_ms_per_pass=per_pass,
+            kernel_cold_l2_ms=sum(time_cold_ms(lambda p=p: walk(p), 10, flush)
+                                  for p in passes),
+            kernel_nostats_ms=sum(time_ms(lambda p=p: walk(p, with_stats=False),
+                                          10) for p in passes),
+            kernel_fmad_true_ms=sum(time_ms(lambda p=p: walk(p, lib=fmad_lib),
+                                            10) for p in passes),
+            plain_ms=sum(plain_ms["walk_pairs"]),
+            plain_ms_per_pass=plain_ms["walk_pairs"],
+            pairs_per_launch=passes[0]["key"].shape[0],
+            live_pairs_per_pass=[p["live_pairs"] for p in passes],
+            node_visits=nodes, prim_tests=tests,
+            distinct_rows_read={"nodes": int(node_mask.sum()),
+                                "triangles": int((prim_mask & is_tri).sum()),
+                                "quadrics": int((prim_mask & ~is_tri).sum()),
+                                "treelets": int(tl_mask.sum())},
+            dead_pair_bytes=dead_pair_bytes,
+            max_abs_err=err["walk_pairs"], **bound(walk_bytes, walk_ops))
+        res["driver_ms"] = time_ms(lambda: tr.intersect_requeue(
+            ds, st, o2, d2, tmax, any_hit=any_hit), 10)
+        res["driver_nostats_ms"] = time_ms(lambda: tr.intersect_requeue(
+            ds, st, o2, d2, tmax, any_hit=any_hit, with_stats=False), 10)
+        res["driver_profile"] = profile_call(lambda: tr.intersect_requeue(
+            ds, st, o2, d2, tmax, any_hit=any_hit))
+        out[mode] = res
     return out
 
 

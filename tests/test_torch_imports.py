@@ -63,6 +63,27 @@ def test_the_kd_bsp_modules_are_among_them():
         assert os.path.exists(os.path.join(ROOT, src)), src
 
 
+def test_the_requeue_modules_are_among_them():
+    """The re-queue slice: its driver and kernel wrappers import without
+    building anything and without a card, with both launch counts at 0."""
+    assert "tpupt_torch.ops.traverse_requeue" in set(_module_names())
+    code = (
+        "import sys\n"
+        "import tpupt_torch.ops.traverse_requeue as r\n"
+        "assert r._LIB is None\n"
+        "assert r.launches == {'bin_rays': 0, 'walk_pairs': 0}\n"
+        "assert all(hasattr(r, f) for f in ('bin_rays_cuda', "
+        "'walk_pairs_cuda', 'intersect_requeue', 'check_stack_depth'))\n"
+        "print('JAX', any(m.split('.')[0] in ('jax', 'jaxlib', 'tpupt') "
+        "for m in sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "JAX False" in out.stdout
+    assert os.path.exists(os.path.join(ROOT, "tpupt_torch/csrc/traverse_requeue.cu"))
+
+
 def _imported_roots(path):
     roots = set()
     for node in ast.walk(ast.parse(open(path).read())):

@@ -5,6 +5,7 @@ builders and of the host-side packing, and every table must be array-equal
 
 import numpy as np
 import pytest
+import torch
 
 from tpupt.accel import kdbsp as jk
 from tpupt.native import polytope_cut_area as jax_polytope_cut_area
@@ -17,6 +18,10 @@ from tpupt_torch.scene.flatten import flatten
 from tpupt_torch.scene.loader import parse_string
 from tpupt_torch.scene.params import ParamSet
 from tpupt_torch.tools import testscenes
+
+# one intra-op thread: the tier-1 run puts six test processes on the
+# machine's cores, and more threads a process only make them compete
+torch.set_num_threads(1)
 
 S2, S3 = np.sqrt(2), np.sqrt(3)
 _IDS = [f"{a}{n or ''}" for a, n in testscenes.ALT_ACCELERATORS]

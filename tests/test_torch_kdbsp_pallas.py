@@ -1,7 +1,8 @@
 """tpupt_torch's kd / RBSP / BSP walker against the JAX package's TPU kernel
 (`tpupt.ops.traverse_kdbsp`, Pallas) run as the JAX package's own tests run it
-on the CPU: one 1024-ray packet in interpret mode. In a file of its own: the
-interpreter takes about a minute a tree."""
+on the CPU: one 1024-ray packet in interpret mode. In a file of its own:
+compiling the interpreted kernel takes about a minute, so both trees hand it
+tables of one shape and share one compile."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,8 +12,25 @@ import torch
 from test_torch_kdbsp_traverse import _base, _tree
 from tpupt_torch.accel import kdbsp
 
+# one intra-op thread: the tier-1 run puts six test processes on the
+# machine's cores, and more threads a process only make them compete
+torch.set_num_threads(1)
 
-@pytest.mark.parametrize("accel,ndirs", [("kdtree", None), ("rbsp", 3)])
+
+CASES = [("kdtree", None), ("rbsp", 3)]
+
+
+def _prim_rows(accel, ndirs):
+    """The tree's packed prim rows with zero rows appended up to the longest
+    of CASES (the node tiles of both trees already have one shape). Rows
+    past a tree's own are never read, and the jitted kernel, whose compile is
+    most of this file's time, then serves both trees."""
+    rows = max(len(_tree(a, n)[0][0]["prim_rows"]) for a, n in CASES)
+    own = np.asarray(_tree(accel, ndirs)[0][0]["prim_rows"])
+    return jnp.asarray(np.pad(own, ((0, rows - len(own)), (0, 0))))
+
+
+@pytest.mark.parametrize("accel,ndirs", CASES)
 def test_walker_matches_pallas_kernel_in_interpret_mode(accel, ndirs):
     """One 1024-ray packet through the JAX package's TPU kernel as its own
     tests run it on the CPU. `t` to rtol=1e-3, the bound its own test holds
@@ -23,7 +41,7 @@ def test_walker_matches_pallas_kernel_in_interpret_mode(accel, ndirs):
     _, (ds_j, st_j), _, o, d, _ = _base()
     (nodes, _, _), (ds_t, st_t) = _tree(accel, ndirs)
     ds_j = ds_j._replace(alt_pack=nodes["pack"],
-                         alt_prim_rows=nodes["prim_rows"])
+                         alt_prim_rows=_prim_rows(accel, ndirs))
     o, d = o[:1024], d[:1024]
     inf = np.full(1024, np.inf, np.float32)
     hj, _ = intersect_kdbsp_packets(ds_j, st_j, jnp.asarray(o), jnp.asarray(d),

@@ -43,6 +43,10 @@ from tpupt_torch.tools import genscene, testscenes
 
 from test_torch_render import _SMOKE
 
+# one intra-op thread: the tier-1 run puts six test processes on the
+# machine's cores, and more threads a process only make them compete
+torch.set_num_threads(1)
+
 RES = 32
 DEPTH = 5
 

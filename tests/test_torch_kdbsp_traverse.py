@@ -53,6 +53,10 @@ from tpupt_torch.scene.loader import parse_string
 from tpupt_torch.scene.params import ParamSet
 from tpupt_torch.tools import testscenes
 
+# one intra-op thread: the tier-1 run puts six test processes on the
+# machine's cores, and more threads a process only make them compete
+torch.set_num_threads(1)
+
 TRI_T_ULP = 8
 BARY_TOL = 5e-6
 QUADRIC_T_RTOL = 2e-5

@@ -25,6 +25,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from tpupt.integrators.path import Renderer as JaxRenderer
 from tpupt.scene.flatten import flatten as jax_flatten
@@ -37,6 +38,10 @@ from tpupt_torch.scene.device import from_numpy
 from tpupt_torch.scene.flatten import flatten, with_resolution
 from tpupt_torch.scene.loader import parse_file, parse_string
 from tpupt_torch.tools import genscene, testscenes
+
+# one intra-op thread: the tier-1 run puts six test processes on the
+# machine's cores, and more threads a process only make them compete
+torch.set_num_threads(1)
 
 SPP = 2
 

@@ -1,0 +1,351 @@
+"""tpupt_torch's re-queue traversal (the module that holds CUDA kernels
+`bin_rays` and `walk_pairs`) against the JAX package's
+(`tpupt.ops.traverse_requeue`) and against the port's own two-level walker.
+
+Scenes: the 400-triangle cluster scene of tests/test_smoke_fast.py, rebuilt
+from the same seed (`testscenes.triangle_clusters_pbrt(400, 8)` draws the
+same triangles) and cut at treelet capacities (32, 256), and every quadric
+kind among 300 triangles cut at (4, 128). Each package uploads the scene
+itself; both cut it into the same treelets and number them alike
+(tests/test_torch_treelets.py holds the top tiles' treelet ids against the
+port's metas), so treelet ids are compared directly. On the CPU the wrappers
+run the kernels' plain versions. Tolerances, and why:
+
+- per-ray lists against the JAX package's TPU kernel (interpret mode), on
+  live rays: treelet ids and overflow counts exact; entry t within 1 ulp
+  (the slab products are the same operations; the entries are only sort
+  keys). The port records, in the TPU lane's order, only the boxes its own
+  ray hits; a dead lane records nothing here and whatever it stands in
+  there, so dead lanes are left out.
+- the driver against the port's two-level walker: `valid` exact; closest hit
+  `prim`, `t`, `p_obj` and the barycentrics of triangle hits equal to the
+  bit, except on rays where the two find different prims at exactly the
+  same t (a hit on an edge two triangles share, found in another order:
+  counted, at most 1 % of the hits); a quadric hit's b1 / b2 are whatever an
+  earlier triangle hit of the same walk left there, and the walks differ.
+  Any hit: `valid` exact and t 0 on every hit, as in the JAX package.
+  `truncated` zero: one thread a pair defers no pair.
+- the driver against the JAX package's driver (interpret mode, 128 rays):
+  `valid` exact, `t` to rtol 2e-4 / atol 1e-5, the bound of the JAX
+  package's own test (tests/test_smoke_fast.py), which compares its driver
+  with its walker.
+- a render through the driver: film equal to the default render's pixel for
+  pixel (the hits are the same); only the node-visit AOV differs (the
+  re-queue walk counts no top-tree steps).
+"""
+
+import dataclasses
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpupt.core.vecmath import ray_inv_d as jax_ray_inv_d
+from tpupt.ops import traverse_requeue as jrq
+from tpupt.scene.device import upload as jax_upload
+from tpupt.scene.flatten import flatten as jax_flatten
+from tpupt.scene.loader import parse_string as jax_parse_string
+from tpupt_torch.accel import traverse as trav
+from tpupt_torch.integrators.path import Renderer
+from tpupt_torch.ops import traverse_requeue
+from tpupt_torch.ops.traverse_requeue import (bin_rays_cuda,
+                                              intersect_requeue,
+                                              walk_pairs_cuda)
+from tpupt_torch.scene.device import upload
+from tpupt_torch.scene.flatten import flatten
+from tpupt_torch.scene.loader import parse_string
+from tpupt_torch.tools import testscenes
+
+# one intra-op thread: the tier-1 run puts six test processes on the
+# machine's cores, and more threads a process only make them compete
+torch.set_num_threads(1)
+
+N_RAYS = 384
+TOP_ROWS = 32
+TIE_SHARE = 0.01
+SCENES = {"clusters": (lambda: testscenes.triangle_clusters_pbrt(400, 8),
+                       (32, 256)),
+          "quadrics": (lambda: testscenes.quadric_kinds_pbrt(n_tris=300),
+                       (4, 128))}
+
+
+def _rays_at_prims(ds, st, n, seed):
+    """Rays from a sphere 0.75 scene diagonals around the scene's centre,
+    every other one aimed at a random triangle's centroid (the clusters fill
+    little of their box), the rest at random points of the box."""
+    lo, hi = ds.world_lo.numpy(), ds.world_hi.numpy()
+    o, d = testscenes.aimed_rays(n, seed, lo, hi)
+    rng = np.random.default_rng(seed + 1)
+    pick = rng.integers(0, st.n_tris, n // 2)
+    target = (ds.tri_p0.numpy()[pick] + ds.tri_p1.numpy()[pick]
+              + ds.tri_p2.numpy()[pick]) / 3.0
+    aim = target - o[: n // 2]
+    d[: n // 2] = aim / np.linalg.norm(aim, axis=1, keepdims=True)
+    return o, np.ascontiguousarray(d, dtype=np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _scene(name):
+    text, budget = SCENES[name]
+    txt = text()
+    jx = jax_upload(jax_flatten(jax_parse_string(txt)), two_level=True,
+                    treelet_budget=budget)
+    ds, st = upload(flatten(parse_string(txt)), device="cpu", two_level=True,
+                    treelet_budget=budget)
+    assert st.two_level and st.n_treelets >= 8
+    assert st.n_treelets == jx[1].n_treelets
+    o, d = _rays_at_prims(ds, st, N_RAYS, 19)
+    return name, jx, (ds, st), o, d
+
+
+@pytest.fixture(scope="module", params=list(SCENES))
+def scene(request):
+    return _scene(request.param)
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+# ------------------------ (a) per-ray lists ---------------------------------
+
+
+@pytest.mark.parametrize("r_list", [16, 2])
+def test_lists_match_the_pallas_kernel_in_interpret_mode(scene, r_list):
+    """`bin_rays` against `_bin_rays(..., interpret=True)` (kernel
+    `_kernel_top_perlane`) on one 1024-lane packet; every eighth ray dead."""
+    name, (ds_j, _), (ds, st), o, d = scene
+    tmax = np.full(N_RAYS, np.inf, np.float32)
+    tmax[::8] = 0.0
+    pad = 1024 - N_RAYS
+    oj = np.concatenate([o, np.ones((pad, 3), np.float32)])
+    dj = np.concatenate([d, np.ones((pad, 3), np.float32)])
+    tj = np.concatenate([tmax, np.zeros(pad, np.float32)])
+    inv = np.asarray(jax_ray_inv_d(jnp.asarray(dj)))
+
+    def pk(x):
+        return jnp.asarray(x.reshape(1, 8, 128))
+
+    # the top tiles padded to one shape for both scenes, with rows no node
+    # points to: the jitted kernel, whose compile is most of this test's
+    # time, then serves both
+    top = np.asarray(ds_j.top_tiles)
+    assert len(top) <= TOP_ROWS
+    top = np.pad(top, ((0, TOP_ROWS - len(top)),) + ((0, 0),) * (top.ndim - 1))
+    tid_j, tn_j, ovf_j = jrq._bin_rays(
+        jnp.asarray(top), pk(oj[:, 0]), pk(oj[:, 1]), pk(oj[:, 2]),
+        pk(inv[:, 0]), pk(inv[:, 1]), pk(inv[:, 2]), pk(tj),
+        r_list=r_list, interpret=True)
+    before = dict(traverse_requeue.launches)
+    tid, tn, ovf = bin_rays_cuda(ds, st, *_torch(o, d, tmax), r_list=r_list)
+    assert traverse_requeue.launches == before   # CPU: the plain version
+
+    live = tmax > 0
+    tid_j, tn_j = np.asarray(tid_j)[:N_RAYS], np.asarray(tn_j)[:N_RAYS]
+    ovf_j = np.asarray(ovf_j)[:N_RAYS]
+    tid, tn = tid.numpy(), tn.numpy()
+    # both sides nearest first, equal entry t in record order
+    oj_ = np.argsort(tn_j, axis=1, kind="stable")
+    ot_ = np.argsort(tn, axis=1, kind="stable")
+    tid_j, tn_j = (np.take_along_axis(a, oj_, 1) for a in (tid_j, tn_j))
+    tid, tn = (np.take_along_axis(a, ot_, 1) for a in (tid, tn))
+    np.testing.assert_array_equal(tid[live], tid_j[live])
+    np.testing.assert_array_equal(ovf.numpy()[live], ovf_j[live])
+    assert testscenes.ulp_distance(tn[live], tn_j[live]).max() <= 1
+    assert (tid[~live] == -1).all() and (ovf.numpy()[~live] == 0).all()
+    assert (tid[live] >= 0).any(1).mean() > 0.2
+    if r_list == 2 and name == "quadrics":
+        # lists overflow at 2 (the cluster scene's 8 treelets lie apart: its
+        # rays seldom cross three)
+        assert (ovf.numpy() > 0).sum() > 10
+
+
+# ------------------------ (b) against the two-level walker -------------------
+
+
+CASES = ["closest", "any", "cut_tmax", "dead_lanes", "r_list_2"]
+
+
+def _compare(out, ref, any_hit, n_tris):
+    (h, s), (hp, _) = out, ref
+    np.testing.assert_array_equal(h.valid.numpy(), hp.valid.numpy())
+    assert int(s.truncated.sum()) == 0
+    valid = hp.valid.numpy()
+    if any_hit:
+        assert (h.t.numpy()[valid] == 0).all()
+        return 0
+    prim, prim_p = h.prim.numpy(), hp.prim.numpy()
+    same = valid & (prim == prim_p)
+    ties = valid & (prim != prim_p)
+    np.testing.assert_array_equal(h.t.numpy()[valid], hp.t.numpy()[valid])
+    tri = same & (prim_p < n_tris)
+    for f in ("b1", "b2"):
+        np.testing.assert_array_equal(getattr(h, f).numpy()[tri],
+                                      getattr(hp, f).numpy()[tri])
+    np.testing.assert_array_equal(h.p_obj.numpy()[same], hp.p_obj.numpy()[same])
+    assert ties.sum() <= TIE_SHARE * valid.sum()
+    return int(ties.sum())
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_driver_matches_the_two_level_walker(scene, case):
+    name, _, (ds, st), o, d = scene
+    any_hit = case == "any"
+    tmax = np.full(N_RAYS, np.inf, np.float32)
+    if case == "cut_tmax":
+        diag = float(torch.linalg.norm(ds.world_hi - ds.world_lo))
+        tmax = np.random.default_rng(2).uniform(
+            0.1 * diag, 0.8 * diag, N_RAYS).astype(np.float32)
+    if case == "dead_lanes":
+        tmax[::3] = 0.0
+    r_list = 2 if case == "r_list_2" else 16
+    to, td, tt = _torch(o, d, tmax)
+    before = dict(traverse_requeue.launches)
+    out = intersect_requeue(ds, st, to, td, tt, any_hit=any_hit, r_list=r_list)
+    assert traverse_requeue.launches == before   # CPU: the plain versions
+    ref = trav.intersect_two_level(ds, st, to, td, tt, any_hit=any_hit)
+    _compare(out, ref, any_hit, st.n_tris)
+    hit, stats = out
+    assert int(hit.valid.sum()) > 20
+    live = tt > 0
+    assert int(stats.node_visits[live].sum()) > 0
+    if case == "dead_lanes":
+        dead = ~live
+        assert not bool(hit.valid[dead].any())
+        assert int(stats.node_visits[dead].sum()) == 0
+    if case == "r_list_2" and name == "quadrics":
+        _, _, ovf = trav.bin_rays(ds, st, to, td, tt, 2)
+        assert int((ovf > 0).sum()) > 10   # the K3 fallback took these
+
+
+def test_driver_plain_mode_is_the_same_function(scene):
+    """The driver's pass loop over the plain versions (what chip_smoke.py
+    renders the comparison with) and `intersect_requeue` over the wrappers
+    give the same records on the CPU."""
+    _, _, (ds, st), o, d = scene
+    to, td, tt = _torch(o, d, np.full(N_RAYS, np.inf, np.float32))
+    a, sa = intersect_requeue(ds, st, to, td, tt, r_list=2)
+    b, sb = traverse_requeue._requeue(
+        trav.bin_rays, trav.walk_pairs, trav.intersect_two_level,
+        ds, st, to, td, tt, r_list=2)
+    for x, y in zip(list(a) + list(sa), list(b) + list(sb)):
+        assert torch.equal(x, y)
+
+
+# ------------------------ (c) against the JAX package's driver ---------------
+
+
+def test_driver_matches_the_jax_drivers_in_interpret_mode():
+    """128 rays through `intersect_packets_requeue(..., interpret=True)` on
+    the cluster scene, with at most 4 treelets a 1024-lane chunk (its
+    `segs`; 16 by default): compiling the interpreted chunk kernel, whose
+    segment loop is unrolled, takes most of this test's time, and the JAX
+    package's third pass takes what a chunk defers (its `truncated` is
+    checked to be 0, so no pair was left unwalked)."""
+    _, (ds_j, st_j), (ds, st), o, d = _scene("clusters")
+    o, d = o[:128], d[:128]
+    inf = np.full(128, np.inf, np.float32)
+    hj, sj = jrq.intersect_packets_requeue(ds_j, st_j, jnp.asarray(o),
+                                           jnp.asarray(d), jnp.asarray(inf),
+                                           interpret=True, segs=4)
+    ht, stt = intersect_requeue(ds, st, *_torch(o, d, inf))
+    valid = np.asarray(hj.valid)
+    assert valid.sum() > 20
+    np.testing.assert_array_equal(ht.valid.numpy(), valid)
+    np.testing.assert_allclose(ht.t.numpy()[valid], np.asarray(hj.t)[valid],
+                               rtol=2e-4, atol=1e-5)
+    assert int(np.asarray(sj.truncated).max()) == 0
+    assert int(stt.truncated.max()) == 0
+
+
+# ------------------------ (d) the render ------------------------------------
+
+
+def test_render_through_the_driver_equals_the_default_render():
+    """16x16 pixels of a small two-level scene: `Renderer(isect=
+    intersect_requeue)` against the Renderer's own pick (the two-level
+    walker on the CPU)."""
+    txt = testscenes.triangle_clusters_pbrt(600, 12, 6, lights=True)
+    sc = flatten(parse_string(txt))
+    sc = dataclasses.replace(sc, film=dataclasses.replace(sc.film, xres=16,
+                                                          yres=16))
+    tables = upload(sc, light_strategy="spatial", device="cpu",
+                    two_level=True, treelet_budget=(16, 128))
+    calls = []
+
+    def requeue(*args, any_hit=False):
+        calls.append(any_hit)
+        return intersect_requeue(*args, any_hit=any_hit)
+
+    f1 = Renderer(sc, device="cpu", tables=tables).render(spp=1)
+    f2 = Renderer(sc, device="cpu", tables=tables, isect=requeue).render(spp=1)
+    assert len(calls) == 2 * (sc.integrator.max_depth + 1)
+    np.testing.assert_array_equal(f2.rgb.numpy(), f1.rgb.numpy())
+    np.testing.assert_array_equal(f2.weight.numpy(), f1.weight.numpy())
+    a2, a1 = f2.aov.numpy(), f1.aov.numpy()
+    np.testing.assert_array_equal(a2[..., 3], a1[..., 3])   # path length
+    np.testing.assert_array_equal(a2[..., 1] > 0, a1[..., 1] > 0)
+    assert float(f2.rgb.sum()) > 0
+
+
+# ------------------------ wrappers ------------------------------------------
+
+
+def test_wrappers_refuse_single_level_tables_and_bad_inputs(scene):
+    _, _, (ds, st), o, d = scene
+    to, td, tt = _torch(o[:8], d[:8], np.full(8, np.inf, np.float32))
+    ds1, st1 = upload(flatten(parse_string(
+        testscenes.random_triangles_pbrt(8, 0))), device="cpu")
+    for fn in (bin_rays_cuda, intersect_requeue):
+        with pytest.raises(ValueError, match="two-level"):
+            fn(ds1, st1, to, td, tt)
+    with pytest.raises(TypeError):
+        bin_rays_cuda(ds, st, to.double(), td, tt)
+    key = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(TypeError, match="key"):
+        walk_pairs_cuda(ds, st, to, td, key.long(), key, tt)
+    with pytest.raises(ValueError, match="ray"):
+        walk_pairs_cuda(ds, st, to, td, key, key[:3], tt)
+    with pytest.raises(ValueError, match="wave0"):
+        intersect_requeue(ds, st, to, td, tt, wave0=0)
+
+
+@pytest.mark.gpu
+def test_kernels_equal_their_plain_versions_on_card(scene):
+    """Needs a CUDA device and nvcc; `python3 chip_smoke.py` runs the same
+    comparisons at full size. Each kernel, as the driver's passes call it,
+    against its plain version on the same inputs, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _, _, (ds, st), o, d = scene
+    dev = torch.device("cuda")
+    ds = type(ds)(*[t.to(dev) for t in ds])
+    to, td = [t.to(dev) for t in _torch(o, d)]
+    tt = torch.full((N_RAYS,), float("inf"), device=dev)
+    before = dict(traverse_requeue.launches)
+
+    def same(kernel, plain):
+        for a, b in zip(kernel, plain):
+            assert torch.equal(a, b)
+        return kernel
+
+    def bin_fn(*args):
+        return same(bin_rays_cuda(*args), trav.bin_rays(*args))
+
+    def walk(*args, any_hit):
+        return same(walk_pairs_cuda(*args, any_hit=any_hit),
+                    trav.walk_pairs(*args, any_hit=any_hit))
+
+    out = traverse_requeue._requeue(bin_fn, walk, trav.intersect_two_level,
+                                    ds, st, to, td, tt)
+    assert traverse_requeue.launches == {
+        "bin_rays": before["bin_rays"] + 1,
+        "walk_pairs": before["walk_pairs"] + 2}
+
+    def cpu(res):
+        return [type(x)(*[f if f is None else f.cpu() for f in x]) for x in res]
+
+    _compare(cpu(out), cpu(trav.intersect_two_level(ds, st, to, td, tt)),
+             False, st.n_tris)

@@ -14,6 +14,10 @@ from tpupt.samplers.samplers import WavefrontSampler as JaxSampler
 from tpupt_torch.core import rng as trng
 from tpupt_torch.samplers.samplers import WavefrontSampler as TorchSampler
 
+# one intra-op thread: the tier-1 run puts six test processes on the
+# machine's cores, and more threads a process only make them compete
+torch.set_num_threads(1)
+
 
 def _bits(x):
     return np.ascontiguousarray(np.asarray(x), np.float32).view(np.uint32)

@@ -19,6 +19,10 @@ from tpupt_torch.scene.flatten import flatten
 from tpupt_torch.scene.loader import parse_file, parse_string
 from tpupt_torch.tools import genscene, testscenes
 
+# one intra-op thread: the tier-1 run puts six test processes on the
+# machine's cores, and more threads a process only make them compete
+torch.set_num_threads(1)
+
 _TEXT_SCENES = {
     "random_triangles": lambda: testscenes.random_triangles_pbrt(60, 0),
     "triangles_and_spheres": lambda: testscenes.random_triangles_pbrt(60, 5),

@@ -38,6 +38,10 @@ from tpupt_torch.scene.flatten import (CAM_ORTHOGRAPHIC, CAM_PERSPECTIVE,
                                        FILTER_TRIANGLE, FilmConfig)
 from tpupt_torch.tools import testscenes
 
+# one intra-op thread: the tier-1 run puts six test processes on the
+# machine's cores, and more threads a process only make them compete
+torch.set_num_threads(1)
+
 RTOL, ATOL = 2e-5, 1e-6
 N = 512
 

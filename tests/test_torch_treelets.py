@@ -46,6 +46,10 @@ from tpupt_torch.scene.flatten import flatten
 from tpupt_torch.scene.loader import parse_file, parse_string
 from tpupt_torch.tools import genscene, testscenes
 
+# one intra-op thread: the tier-1 run puts six test processes on the
+# machine's cores, and more threads a process only make them compete
+torch.set_num_threads(1)
+
 N_RAYS = 2048
 BARY_TOL = 1e-5
 QUADRIC_T_RTOL = 2e-5
@@ -148,13 +152,34 @@ def _tmax(finite, ds):
             if finite else np.full(N_RAYS, np.inf, np.float32))
 
 
+_JAX_HITS = {}
+
+
+def _jax_hits(scene, any_hit, finite):
+    """The JAX package's Hit for the scene's rays with no cut-off and with
+    the finite tmax, from ONE call on both sets side by side: its walker's
+    loop is compiled anew for every call, and that compile is most of this
+    test's time. Each ray's walk is its own, so the halves are the results
+    of two calls."""
+    name, (ds_j, st_j), _, (ds, _), o, d = scene
+    if (name, any_hit) not in _JAX_HITS:
+        hit, _ = jax_intersect_wide(
+            ds_j, st_j, jnp.asarray(np.concatenate([o, o])),
+            jnp.asarray(np.concatenate([d, d])),
+            jnp.asarray(np.concatenate([_tmax(False, ds), _tmax(True, ds)])),
+            any_hit=any_hit)
+        _JAX_HITS[name, any_hit] = [
+            type(hit)(*[np.asarray(x)[half] for x in hit])
+            for half in (slice(0, N_RAYS), slice(N_RAYS, None))]
+    return _JAX_HITS[name, any_hit][int(finite)]
+
+
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 @pytest.mark.parametrize("finite", [False, True], ids=["inf", "finite_tmax"])
 def test_hit_records_match_jax_and_single_level(scene, any_hit, finite):
-    _, (ds_j, st_j), _, (ds, st), o, d = scene
+    _, _, _, (ds, st), o, d = scene
     tmax = _tmax(finite, ds)
-    hj, _ = jax_intersect_wide(ds_j, st_j, jnp.asarray(o), jnp.asarray(d),
-                               jnp.asarray(tmax), any_hit=any_hit)
+    hj = _jax_hits(scene, any_hit, finite)
     to, td, tt = torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tmax)
     before = traverse_treelets.launches
     h2, s2 = intersect_treelets_cuda(ds, st, to, td, tt, any_hit=any_hit)

@@ -10,7 +10,9 @@ per-ray node/leaf/primitive counters matching the reference's `GeneralStats`
 treelets, accel/treelets.py) are what the CPU runs and what the CUDA kernels
 (csrc/traverse_wide.cu, csrc/traverse_treelets.cu; wrappers in ops/) are held
 against on the card: each kernel repeats its plain version's arithmetic
-operation for operation."""
+operation for operation. `bin_rays` and `walk_pairs` are the same for the two
+kernels of the re-queue traversal (csrc/traverse_requeue.cu, driven by
+ops/traverse_requeue.py)."""
 
 from __future__ import annotations
 
@@ -41,6 +43,9 @@ class TraversalStats(NamedTuple):
     node_visits: torch.Tensor  # (N,) i32 wide-node traversals
     leaf_visits: torch.Tensor  # (N,) i32
     prim_tests: torch.Tensor   # (N,) i32 primitive intersection tests
+    # (ray, treelet) pairs the re-queue traversal left unwalked (a possible
+    # missed hit, counted rather than hidden); None from the exact walkers
+    truncated: torch.Tensor = None
 
 
 WIDE_STACK = 48
@@ -313,6 +318,173 @@ def intersect_two_level(ds: DeviceScene, st: SceneStatics, o, d, tmax,
     p_obj = quadric_hit_point(ds.tl_prims, st, o, d, t_cur, ridx)
     hit = Hit(valid=gid >= 0, t=t_cur, prim=gid, b1=b1, b2=b2, p_obj=p_obj)
     return hit, TraversalStats(nodes, leaves, tests)
+
+
+R_LIST = 16   # treelet records a ray keeps in the re-queue traversal
+
+
+def pair_sentinel(st: SceneStatics) -> int:
+    """Sort key of a (ray, treelet) pair with no work: past every live key
+    treelet * 8 + octant."""
+    return st.n_treelets * 8 + 8
+
+
+@torch.no_grad()
+def bin_rays(ds: DeviceScene, st: SceneStatics, o, d, tmax,
+             r_list: int = R_LIST, touched=None):
+    """Per-ray treelet lists over the two-level tables: the plain PyTorch
+    version of the CUDA kernel `bin_rays` (csrc/traverse_requeue.cu), first
+    phase of the re-queue traversal.
+
+    Each live ray (tmax > 0) walks the top tree on its own stack: it pops
+    the node pushed last and takes its 8 slots in slot order (the slab test
+    of `_interior_step` against the ray's tmax, no near-first sort),
+    recording each treelet reference it hits as (treelet id, max(t_near,
+    0)) and pushing each interior child it hits. That is the JAX package's
+    per-lane record order (`_kernel_top_perlane`), so a list that overflows
+    keeps the same records. Past `r_list` records a ray only counts; dead
+    rays get empty lists. Returns tid (N, R) i32 (-1 empty), tnear (N, R)
+    f32 (3e38 empty) and ovf (N,) i32. `touched` = (top row mask, one-int
+    tensor of node steps), when given, is filled in."""
+    if not st.two_level:
+        raise ValueError("the scene was uploaded without two-level tables")
+    n = o.shape[0]
+    dev = o.device
+    i32 = torch.int32
+    inv_d = ray_inv_d(d)
+    top_meta = ds.top_nodes[:, 48:56].view(i32)
+    tmax = tmax.to(torch.float32)
+    # column r_list absorbs the writes of lanes that record nothing
+    tid = torch.full((n, r_list + 1), -1, dtype=i32, device=dev)
+    tnear = torch.full((n, r_list + 1), _BIG, device=dev)
+    ovf = torch.zeros(n, dtype=i32, device=dev)
+    cnt = torch.zeros(n, dtype=i32, device=dev)
+    stack = torch.zeros((n, WIDE_STACK + 1), dtype=i32, device=dev)
+    sp = (tmax > 0.0).to(i32)   # entry 0 = top node id 0; dead rays: empty
+    while _deepest(sp) > 0:
+        active = sp > 0
+        top = (sp - 1).clamp_min(0).long()
+        node = torch.where(active, stack.gather(1, top[:, None])[:, 0], 0).long()
+        sp = torch.where(active, sp - 1, sp)
+        if touched is not None:
+            touched[0][node[active]] = True
+            touched[1] += active.sum()
+        row = ds.top_nodes[node]
+        mrow = top_meta[node]
+        for c in range(8):
+            lo = row[:, c * 6: c * 6 + 3]
+            hi = row[:, c * 6 + 3: c * 6 + 6]
+            t_lo = (lo - o) * inv_d
+            t_hi = (hi - o) * inv_d
+            t_near = torch.amax(torch.minimum(t_lo, t_hi), dim=-1)
+            t_far = torch.amin(torch.maximum(t_lo, t_hi), dim=-1) * 1.0000004
+            m = mrow[:, c]
+            hit = active & (t_near <= t_far) & (t_far > 0.0) \
+                & (t_near < tmax) & (m != META_EMPTY)
+            is_ref = hit & (m < 0)
+            col = torch.where(is_ref, cnt, r_list).clamp_max(r_list).long()
+            tid.scatter_(1, col[:, None], torch.where(is_ref, -m - 1, -1)[:, None])
+            # max(t_near, 0) spelled so that a -0.0 entry is stored as +0.0
+            # here and in the kernel alike
+            entry = torch.where(t_near > 0.0, t_near, 0.0)
+            tnear.scatter_(1, col[:, None],
+                           torch.where(is_ref, entry, _BIG)[:, None])
+            ovf = ovf + (is_ref & (cnt >= r_list)).to(i32)
+            cnt = cnt + is_ref.to(i32)
+            push = hit & (m >= 0)
+            slot = torch.where(push, sp, WIDE_STACK).clamp_max(WIDE_STACK)
+            stack.scatter_(1, slot.long()[:, None], m[:, None])
+            sp = sp + push.to(i32)
+    return tid[:, :r_list].contiguous(), tnear[:, :r_list].contiguous(), ovf
+
+
+class PairRecords(NamedTuple):
+    """What the walk of each (ray, treelet) pair found, one entry a pair."""
+
+    t: torch.Tensor            # (P,) f32 best t (the ray's start t if no hit)
+    gid: torch.Tensor          # (P,) i32 global prim id, -1 = no hit
+    ridx: torch.Tensor         # (P,) i32 winning row of tl_prims
+    b1: torch.Tensor           # (P,) f32
+    b2: torch.Tensor           # (P,) f32
+    node_visits: torch.Tensor  # (P,) i32
+    leaf_visits: torch.Tensor  # (P,) i32
+    prim_tests: torch.Tensor   # (P,) i32
+
+
+@torch.no_grad()
+def walk_pairs(ds: DeviceScene, st: SceneStatics, o, d, key, ray, t_in,
+               any_hit: bool = False, touched=None) -> PairRecords:
+    """One pass of the re-queue traversal over (ray, treelet) pairs: the
+    plain PyTorch version of the CUDA kernel `walk_pairs`
+    (csrc/traverse_requeue.cu).
+
+    `key` (P,) i32 holds the pair keys treelet * 8 + octant, or
+    `pair_sentinel(st)` for a pair with no work, `ray` (P,) i32 each pair's
+    ray, `t_in` (N,) f32 each ray's best t when the pass starts. A live
+    pair walks its treelet as
+    `intersect_two_level` walks a treelet it enters: from the local root, on
+    a stack of its own, with `_interior_step` / `_leaf_step` and its ray's
+    `t_in` as the current t; with any_hit it stops at its first hit. A pair
+    with no work keeps t_in, gid -1 and zero counters. `touched` = (treelet
+    node mask, prim mask, treelet mask), when given, is filled in."""
+    if not st.two_level:
+        raise ValueError("the scene was uploaded without two-level tables")
+    p = key.shape[0]
+    dev = o.device
+    i32 = torch.int32
+    ray = ray.long()
+    t_out = t_in.to(torch.float32)[ray]
+    gid = torch.full((p,), -1, dtype=i32, device=dev)
+    ridx = torch.zeros(p, dtype=i32, device=dev)
+    b1 = torch.zeros(p, device=dev)
+    b2 = torch.zeros(p, device=dev)
+    counts = [torch.zeros(p, dtype=i32, device=dev) for _ in range(3)]
+    live = torch.nonzero(key < pair_sentinel(st))[:, 0]
+    m = live.shape[0]
+    if m:
+        r = ray[live]
+        o_, d_ = o[r], d[r]
+        perm = ray_permutation(d_)
+        inv_d = ray_inv_d(d_)
+        tl_meta = ds.tl_nodes[:, 48:56].view(i32)
+        prim_ints = ds.tl_prims[:, 16:18].view(i32)
+        tid = (key[live] >> 3).long()
+        off = ds.tl_offsets.long()[tid]
+        if touched is not None:
+            touched[2][tid] = True
+        stack = torch.zeros((m, WIDE_STACK + 1), dtype=i32, device=dev)
+        sp = torch.ones(m, dtype=i32, device=dev)   # entry 0 = local root
+        rec = [t_out[live], torch.full((m,), -1, dtype=i32, device=dev),
+               torch.zeros(m, dtype=torch.int64, device=dev),
+               torch.zeros(m, device=dev), torch.zeros(m, device=dev),
+               torch.zeros(m, dtype=i32, device=dev)]
+        nodes = torch.zeros(m, dtype=i32, device=dev)
+        leaves = torch.zeros(m, dtype=i32, device=dev)
+        while _deepest(sp) > 0:
+            active = sp > 0
+            top = (sp - 1).clamp_min(0).long()
+            raw = stack.gather(1, top[:, None])[:, 0]
+            sp = torch.where(active, sp - 1, sp)
+            is_node = active & (raw >= 0)
+            is_leaf = active & (raw < 0)
+            nid = torch.where(is_node, off[:, 0] + raw, 0)
+            if touched is not None:
+                touched[0][nid[is_node]] = True
+            sp = _interior_step(ds.tl_nodes[nid], tl_meta[nid], is_node, o_,
+                                inv_d, rec[0], stack, sp)
+            nodes = nodes + is_node.to(i32)
+            leaves = leaves + is_leaf.to(i32)
+            v = torch.where(is_leaf, -raw - 1, 0)
+            rec = _leaf_step(ds.tl_prims, prim_ints, st, is_leaf,
+                             off[:, 1] + (v >> 6), v & 63, o_, d_, perm, rec,
+                             None if touched is None else touched[1])
+            if any_hit:
+                sp = torch.where(rec[1] >= 0, 0, sp)
+        t_out[live], gid[live], ridx[live] = rec[0], rec[1], rec[2].to(i32)
+        b1[live], b2[live] = rec[3], rec[4]
+        for full, part in zip(counts, (nodes, leaves, rec[5])):
+            full[live] = part
+    return PairRecords(t_out, gid, ridx, b1, b2, *counts)
 
 
 def quadric_hit_point(prim_rows, st, o, d, t, ridx):

@@ -1,7 +1,7 @@
 // Device code shared by the wide-BVH traversal kernels (traverse_wide.cu,
-// traverse_treelets.cu): the ray set-up, one interior-node step (8 slab
-// tests, sort, push) and one leaf step (watertight triangle / unified quadric
-// tests over packed prim rows). Each function repeats, operation for
+// traverse_treelets.cu, traverse_requeue.cu): the ray set-up, one
+// interior-node step (8 slab tests, sort, push) and one leaf step
+// (watertight triangle / unified quadric tests over packed prim rows). Each function repeats, operation for
 // operation, its counterpart in tpupt_torch/accel/traverse.py
 // (`_interior_step`, `_leaf_step`) and tpupt_torch/shapes/; built with
 // -fmad=false the kernels equal the plain walkers bit for bit. Keep them in
