@@ -4,6 +4,9 @@
     python3 chip_smoke.py            # everything, needs one CUDA device
     python3 chip_smoke.py --quick    # build + kernel checks on the small scenes
     python3 chip_smoke.py --profile  # everything + a torch.profiler pass of 1 spp
+    python3 chip_smoke.py --variants DIR   # everything + other builds of a
+        # kernel source timed beside the shipped one: DIR/<source>__<name>.cu,
+        # <source> a key of SOURCES, each with the shipped source's C interface
 
 It builds every CUDA kernel from the sources in this checkout (one nvcc per
 source, all started together), holds each against its plain PyTorch version
@@ -20,7 +23,11 @@ list overflowed, `traverse_treelets`.
 The launch counts show that each render went through its kernels, and each
 render is compared with one made by the kernels' plain versions (on a
 256x256 crop in the middle of the image: the plain walkers take a second or
-more a traversal). There is no fallback: without a
+more a traversal). K2 and K3 are also held against their plain versions on
+batches of 98 % dead rays, of dead rays only, of one ray and of 131,073
+rays; at the main shape K1, K2 and K3 print the wrapper call and the kernel
+alone (CUDA events around the launch), and K3 is timed as the re-queue
+driver's fallback launch too, with its bound. There is no fallback: without a
 CUDA device, without the `tpupt_torch` package beside it, with a kernel that
 does not build, launch or agree, or with any failed check, it exits with a
 code other than 0 and prints no result line.
@@ -62,7 +69,8 @@ from tpupt_torch.scene.flatten import flatten, with_resolution
 from tpupt_torch.scene.loader import parse_file, parse_string
 from tpupt_torch.scene.params import ParamSet
 from tpupt_torch.tools import genscene, testscenes
-from tpupt_torch.utils.build import BUILD_DIR, NVCC_FLAGS
+from tpupt_torch.utils.build import (BUILD_DIR, CSRC_DIR, NVCC_FLAGS,
+                                     compile_shared, find_nvcc)
 
 ULP_LIMIT = 4            # t / b1 / b2 of kernel vs plain version, in ulps
 MAIN_RES = 1024
@@ -102,6 +110,13 @@ OPS_PER_PRIM = 65
 # (1 sub, 1 abs, 1 compare, 1 div), the side test (3 compares) and the child
 # choice (5 compares)
 OPS_PER_KD_NODE = 22
+
+# lanes of a dead-heavy check batch that are dead: the re-queue fallback's
+# shape (about 98 % of its rays have tmax 0)
+DEAD_SHARE = 0.98
+# the busy wait queued ahead of each launch timed alone (about 1 ms), so that
+# the launch waits on the card and not on the host
+SLEEP_CYCLES = 2_000_000
 
 # the kernel sources, one nvcc run each (and one more with -fmad=true)
 SOURCES = {"traverse_wide": tw, "traverse_treelets": tt,
@@ -181,6 +196,64 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+class TimedLib:
+    """A kernel library each of whose launcher calls is queued behind a busy
+    wait of the card (about 1 ms, so that the launch waits on the card and
+    not on the host) and bracketed by two CUDA events recorded on the
+    current stream just before and after it."""
+
+    def __init__(self, lib):
+        self.lib, self.events = lib, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def timed(*args):
+            torch.cuda._sleep(SLEEP_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            rc = fn(*args)
+            end.record()
+            self.events.append((start, end))
+            return rc
+        return timed
+
+
+def kernel_alone_ms(run, lib, reps: int = 10) -> float:
+    """Device time of the kernel launches inside `run(lib)` (wrapper calls
+    given the library `lib`), without the wrappers' allocations and the
+    PyTorch work around them: the sum over the launches of one call of the
+    time between events just before and after each launch (`TimedLib`),
+    averaged over `reps` calls after one warm-up call."""
+    run(lib)
+    torch.cuda.synchronize()
+    timed = TimedLib(lib)
+    for _ in range(reps):
+        run(timed)
+    torch.cuda.synchronize()
+    if not timed.events or len(timed.events) % reps:
+        fail(f"{len(timed.events)} launches timed alone over {reps} calls")
+    return sum(s.elapsed_time(e) for s, e in timed.events) / reps
+
+
+def variant_timing(run, shipped_lib, variants, check) -> dict:
+    """Other builds of a kernel source (`variants`: name -> library) beside
+    the shipped one: each variant's `run(lib)` output is held against the
+    plain version by `check(name, output)`, then every build's wrapper call
+    (`call_ms`) and kernel alone (`kernel_alone_ms`) are timed in turns:
+    every build in order, then in reverse order; two figures a build."""
+    libs = [("shipped", shipped_lib)] + list(variants.items())
+    for name, lib in libs[1:]:
+        check(name, run(lib))
+    out = {"call_ms": {n: [] for n, _ in libs},
+           "kernel_alone_ms": {n: [] for n, _ in libs}}
+    for name, lib in libs + libs[::-1]:
+        out["call_ms"][name].append(time_ms(lambda: run(lib), 10))
+        out["kernel_alone_ms"][name].append(kernel_alone_ms(run, lib))
+    return out
+
+
 def time_cold_ms(fn, reps: int, flush: torch.Tensor) -> float:
     """As time_ms, but each call finds the L2 cache holding `flush` (a buffer
     larger than the cache, rewritten before every call) instead of the
@@ -232,38 +305,58 @@ def compare_hits(tag, kernel_out, plain_out, with_stats=True):
     return res
 
 
-def build_kernels():
+def build_kernels(variant_dir=None):
     """Every kernel source twice (as shipped, and with contraction of a*b+c
     allowed to record what the bit-exact build gives up; the latter is used
-    for timing only), one nvcc run each, all started together."""
+    for timing only), and each `variant_dir/<source>__<name>.cu`, one nvcc
+    run each, all started together. Returns (seconds, ptxas figures, fmad
+    libraries, {source: {variant: (library, ptxas figures)}})."""
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=2 * len(SOURCES)) as pool:
+    variants = {}
+    if variant_dir:
+        for f in sorted(os.listdir(variant_dir)):
+            kind, _, rest = f.partition("__")
+            if f.endswith(".cu") and kind in SOURCES and rest:
+                variants.setdefault(kind, {})[rest[:-3]] = os.path.join(
+                    variant_dir, f)
+    with ThreadPoolExecutor(max_workers=2 * len(SOURCES) + sum(
+            len(v) for v in variants.values())) as pool:
         shipped = {k: pool.submit(m.build, ["-Xptxas", "-v"])
                    for k, m in SOURCES.items()}
         fmad = {k: pool.submit(
             m.build, ["-fmad=true"],
             os.path.join(BUILD_DIR, f"libtpupt_{k}_fmad.so"))
             for k, m in SOURCES.items()}
+        var = {(k, name): pool.submit(
+            compile_shared, [find_nvcc()] + NVCC_FLAGS
+            + ["-Xptxas", "-v", "-I", CSRC_DIR], src,
+            os.path.join(BUILD_DIR, f"libvariant_{k}__{name}.so"))
+            for k, v in variants.items() for name, src in v.items()}
         logs = {k: f.result()[1] for k, f in shipped.items()}
         fmad_libs = {k: SOURCES[k].load(f.result()[0])
                      for k, f in fmad.items()}
+        var_libs = {}
+        for (k, name), f in var.items():
+            log = f.result()
+            var_libs.setdefault(k, {})[name] = (
+                SOURCES[k].load(os.path.join(
+                    BUILD_DIR, f"libvariant_{k}__{name}.so")),
+                ptxas_lines(log))
     for m in SOURCES.values():
         m.get_lib()
-    return time.time() - t0, {k: ptxas_lines(log) for k, log in logs.items()}, \
-        fmad_libs
+    ptxas = {k: ptxas_lines(log) for k, log in logs.items()}
+    return time.time() - t0, ptxas, fmad_libs, var_libs
 
 
 def ptxas_lines(log: str) -> dict:
-    """What `-Xptxas -v` says of each kernel's <any_hit, has_spheres,
-    with_stats> = all-true variant and of kernels without variants
-    (registers, stack frame, spills), by mangled entry name."""
+    """What `-Xptxas -v` says of every kernel instance (registers, stack
+    frame, spills, static shared memory), by mangled entry name. No kernel
+    takes dynamic shared memory."""
     out, entry = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            name = ln.split("'")[1] if "'" in ln else ln.strip()
-            entry = name if ("ILb" not in name or "Lb1ELb1ELb1E" in name) else None
-            if entry:
-                out[entry] = []
+            entry = ln.split("'")[1] if "'" in ln else ln.strip()
+            out[entry] = []
         elif entry and ("registers" in ln or "spill" in ln):
             out[entry].append(ln.strip().split(":", 1)[-1].strip())
     return out
@@ -308,6 +401,24 @@ def check_cases(kind, cases, checks):
                     lambda: call(ds, st, o, d, tmax, any_hit=any_hit,
                                  with_stats=with_stats), 5)
                 checks[tag] = res
+
+
+def edge_cases(name, ds, st, o, d, tmax, seed):
+    """Batches of the shapes a kernel must also get right: 98 % of the
+    lanes dead (the re-queue fallback's shape), every lane dead, one ray,
+    and 131,073 rays (one past a multiple of every block size)."""
+    gen = np.random.default_rng(seed)
+    dead = torch.from_numpy(gen.random(o.shape[0]) < DEAD_SHARE).to(o.device)
+    i = int(torch.nonzero(tmax > 0)[0])
+    cut = 131073
+    return [
+        (f"{name}/dead98", ds, st, o, d,
+         torch.where(dead, 0.0, tmax).contiguous()),
+        (f"{name}/all_dead", ds, st, o, d, torch.zeros_like(tmax)),
+        (f"{name}/n1", ds, st, o[i:i + 1].contiguous(),
+         d[i:i + 1].contiguous(), tmax[i:i + 1].contiguous()),
+        (f"{name}/n{cut}", ds, st, o[:cut].contiguous(), d[:cut].contiguous(),
+         tmax[:cut].contiguous())]
 
 
 def drive(renderer, per_call: dict, spp):
@@ -424,6 +535,8 @@ def thesis_row(renderer, film, ms_per_spp, spp) -> dict:
 def main(argv) -> int:
     quick = "--quick" in argv
     with_profile = "--profile" in argv
+    variant_dir = (argv[argv.index("--variants") + 1]
+                   if "--variants" in argv else None)
     t_start = time.time()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs a CUDA device")
@@ -436,7 +549,9 @@ def main(argv) -> int:
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr}")
     card_line = smi.stdout.strip().splitlines()[0]
-    kernel_build_s, ptxas, fmad_libs = build_kernels()
+    kernel_build_s, ptxas, fmad_libs, variants = build_kernels(variant_dir)
+    var_libs = {k: {n: lib for n, (lib, _) in v.items()}
+                for k, v in variants.items()}
     t0 = time.time()
     get_native_lib()
     native_build_s = time.time() - t0
@@ -444,7 +559,10 @@ def main(argv) -> int:
           "cuda": torch.version.cuda,
           "kernel_build_s": round(kernel_build_s, 2),
           "native_build_s": round(native_build_s, 2),
-          "nvcc_flags": NVCC_FLAGS, "ptxas_all_true_variant": ptxas})
+          "nvcc_flags": NVCC_FLAGS,
+          "ptxas_every_instance": ptxas,
+          "variants": {k: {n: p for n, (_, p) in v.items()}
+                       for k, v in variants.items()}})
 
     # ----------------------------- kernels ------------------------------
     def upload_text(txt, **kw):
@@ -521,9 +639,14 @@ def main(argv) -> int:
                 kd_trees[name] = {k: stats[k] for k in (
                     "n_nodes", "n_leaves", "max_leaf", "tree_depth")}
         kd_small_builds_s = time.time() - t0
+        kd_cases += [c for base in kd_cases
+                     if base[0] in ("kdtree/museum_1k", "rbsp3/museum_1k")
+                     for c in edge_cases(*base, seed=37)]
 
         check_cases("traverse_wide", wide_cases, checks)
-        check_cases("traverse_treelets", treelet_cases, checks)
+        check_cases("traverse_treelets", treelet_cases + [
+            c for base in treelet_cases for c in edge_cases(*base, seed=41)],
+            checks)
         t0 = time.time()
         check_requeue(treelet_cases, checks)
         requeue_checks_s = time.time() - t0
@@ -617,9 +740,10 @@ def main(argv) -> int:
         "rays": rkd.batch, "live_rays": int((rays_kd[2] > 0).sum()),
         "traverse_kdbsp": main_shape_timing(
             "traverse_kdbsp", (rkd.ds, rkd.st), rays_kd, fmad_libs,
-            "museum_65k_kdtree"),
+            "museum_65k_kdtree", var_libs.get("traverse_kdbsp")),
         "traverse_wide": main_shape_timing(
-            "traverse_wide", tables65, rays_kd, fmad_libs, "museum_65k")}
+            "traverse_wide", tables65, rays_kd, fmad_libs, "museum_65k",
+            var_libs.get("traverse_wide"))}
     same = (shape_kd["traverse_kdbsp"].pop("prims"),
             shape_kd["traverse_wide"].pop("prims"))
     shape_kd["closest_prim_differs_between_kdtree_and_bvh"] = int(
@@ -629,7 +753,7 @@ def main(argv) -> int:
     rr = alt["rbsp3"]["renderer"]
     shape_kd["traverse_kdbsp_through_rbsp3"] = main_shape_timing(
         "traverse_kdbsp", (rr.ds, rr.st), rays_kd, fmad_libs,
-        "museum_65k_rbsp3")
+        "museum_65k_rbsp3", var_libs.get("traverse_kdbsp"))
     same_rbsp = shape_kd["traverse_kdbsp_through_rbsp3"].pop("prims")
     shape_kd["closest_prim_differs_between_rbsp3_and_bvh"] = int(
         (same_rbsp != same[1]).sum())
@@ -703,9 +827,11 @@ def main(argv) -> int:
     rays = main_shape_rays(renderer, scene, tables_1l, dev)
     shape = {"rays": renderer.batch, "live_rays": int((rays[2] > 0).sum()),
              "traverse_wide": main_shape_timing(
-                 "traverse_wide", tables_1l, rays, fmad_libs, "museum_1m"),
+                 "traverse_wide", tables_1l, rays, fmad_libs, "museum_1m",
+                 var_libs.get("traverse_wide")),
              "traverse_treelets": main_shape_timing(
-                 "traverse_treelets", tables, rays, fmad_libs, "museum_1m")}
+                 "traverse_treelets", tables, rays, fmad_libs, "museum_1m",
+                 var_libs.get("traverse_treelets"))}
     same = (shape["traverse_wide"].pop("prims"), shape["traverse_treelets"].pop("prims"))
     shape["closest_prim_differs_between_levels"] = int((same[0] != same[1]).sum())
     # the single-level kernel on the very tree the treelets were cut from
@@ -723,7 +849,8 @@ def main(argv) -> int:
                "any": tt.intersect_treelets_cuda(ds, st, rays[0], rays[1], cut,
                                                  any_hit=True)}
     shape["traverse_requeue"] = requeue_shape_timing(
-        tables, rays, fmad_libs["traverse_requeue"], "museum_1m", k3_hits)
+        tables, rays, fmad_libs["traverse_requeue"], "museum_1m", k3_hits,
+        var_libs)
     del k3_hits
     check_stack_depths()
     if with_profile:
@@ -786,9 +913,19 @@ def main(argv) -> int:
             "library_ms": None,
             "any_hit_ms": sh["any"]["kernel_ms"],
             "any_hit_bound_ms": sh["any"]["bound_ms"],
+            "kernel_alone_ms": sh["closest"]["kernel_alone_ms"],
+            "any_hit_kernel_alone_ms": sh["any"]["kernel_alone_ms"],
             "rays_per_launch": shapes[kind]["rays"],
             "tolerance": f"valid/prim/counters exact, t/b1/b2 <= {ULP_LIMIT} ulp",
         })
+        if kind == "traverse_treelets":
+            for mode in ("closest", "any"):
+                fb = shape["traverse_requeue"][mode]["traverse_treelets_fallback"]
+                kernels[-1][f"fallback_{mode}"] = {
+                    "ms": fb["kernel_ms"],
+                    "kernel_alone_ms": fb["kernel_alone_ms"],
+                    "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"],
+                    "live_rays": fb["live_rays"]}
     rq = shape["traverse_requeue"]
     for kind, replaces in REQUEUE_KERNELS.items():
         sh = rq["closest"][kind]
@@ -940,24 +1077,73 @@ def main_shape_rays(renderer, scene, tables_1l, dev):
     return secondary_rays(ds, st, hit, o, d, 31)
 
 
-def main_shape_timing(kind, tables, rays, fmad_libs, tag):
-    """Kernel `kind`, its plain version and its bound on `rays` (closest
-    hit) and on the same rays cut to half the scene's diagonal (any hit).
+def table_bound(kind, ds, masks, stats, live, n_out):
+    """The least time of a traversal kernel's work on the card: the larger
+    of (a) the bytes it must move at least once over the card's memory rate:
+    every table row some ray read (the plain version's `touched` masks),
+    counted once at the bytes the kernel loads of it, the origin and
+    direction of each of the `live` rays, and tmax read and the record
+    written for each of `n_out` rays; and (b) the float32 operations of the
+    rays' node steps and prim tests (`stats`) over the card's float32
+    rate."""
+    spec = KERNELS[kind]
+    prim_table = getattr(ds, spec["tables"][-2] if kind == "traverse_treelets"
+                         else spec["tables"][1])
+    is_tri = prim_table.view(torch.int32)[:, 17] == 1
+    nodes = int(stats.node_visits.sum())
+    tests = int(stats.prim_tests.sum())
+    if kind == "traverse_treelets":
+        rows = {"nodes": int(masks[0].sum()) + int(masks[1].sum()),
+                "treelets": int(masks[3].sum())}
+        prim_mask = masks[2]
+    elif kind == "traverse_kdbsp":
+        # the plain walker marks interior and leaf rows alike; the row's own
+        # leaf flag tells them apart
+        is_leaf = ds.alt_nodes.view(torch.int32)[:, 4] != 0
+        rows = {"nodes": int((masks[0] & ~is_leaf).sum()),
+                "leaves": int((masks[0] & is_leaf).sum()), "treelets": 0}
+        prim_mask = masks[1]
+    else:
+        rows = {"nodes": int(masks[0].sum()), "treelets": 0}
+        prim_mask = masks[1]
+    rows["triangles"] = int((prim_mask & is_tri).sum())
+    rows["quadrics"] = int((prim_mask & ~is_tri).sum())
+    bytes_moved = (spec["node_row_bytes"] * rows["nodes"]
+                   + KD_LEAF_ROW_BYTES * rows.get("leaves", 0)
+                   + TRI_ROW_BYTES * rows["triangles"]
+                   + QUADRIC_ROW_BYTES * rows["quadrics"]
+                   + TREELET_REF_BYTES * rows["treelets"]
+                   + RAY_LIVE_BYTES * live + RAY_BYTES * n_out)
+    ops = spec["ops_per_node"] * nodes + OPS_PER_PRIM * tests
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_OPS_PER_S * 1e3
+    return dict(node_visits=nodes, leaf_visits=int(stats.leaf_visits.sum()),
+                prim_tests=tests, distinct_rows_read=rows,
+                bytes_moved_at_least=bytes_moved,
+                bytes_if_every_visit_missed_cache=(
+                    spec["node_row_bytes"] * nodes + TRI_ROW_BYTES * tests
+                    + (KD_LEAF_ROW_BYTES * int(stats.leaf_visits.sum())
+                       if kind == "traverse_kdbsp" else 0)),
+                float_ops=ops, bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
 
-    bound_ms is the larger of (a) the bytes the call must move at least once
-    over the card's memory rate: every table row that some ray of this batch
-    reads, counted once however many rays read it (the plain version marks
-    them) and at the bytes the kernel loads of it, plus the rays read and the
-    records written; and (b) the float32 operations of this batch's node
-    steps and prim tests over the card's float32 rate."""
+
+def touched_masks(kind, ds, dev):
+    return [torch.zeros(getattr(ds, t).shape[0], dtype=torch.bool, device=dev)
+            for t in KERNELS[kind]["tables"]]
+
+
+def main_shape_timing(kind, tables, rays, fmad_libs, tag, variants=None):
+    """Kernel `kind`, its plain version and its bound on `rays` (closest
+    hit) and on the same rays cut to half the scene's diagonal (any hit):
+    the wrapper call as the main path makes it and the kernel alone, and
+    each build of `variants` (name -> library) beside the shipped one.
+    bound_ms: `table_bound` of this batch."""
     ds, st = tables
     spec = KERNELS[kind]
     call, plain_fn = spec["call"], spec["plain"]
     o2, d2, tmax2 = rays
     n = o2.shape[0]
-    prim_table = getattr(ds, spec["tables"][-2] if kind == "traverse_treelets"
-                         else spec["tables"][1])
-    is_tri = prim_table.view(torch.int32)[:, 17] == 1
     half = float(torch.linalg.norm(ds.world_hi - ds.world_lo)) * 0.5
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=o2.device)
     out = {}
@@ -966,61 +1152,35 @@ def main_shape_timing(kind, tables, rays, fmad_libs, tag):
             ("any", True, torch.where(tmax2 > 0, half, 0.0).contiguous())):
         kernel = call(ds, st, o2, d2, tmax, any_hit=any_hit)
         torch.cuda.synchronize()
-        masks = [torch.zeros(getattr(ds, t).shape[0], dtype=torch.bool,
-                             device=o2.device) for t in spec["tables"]]
+        masks = touched_masks(kind, ds, o2.device)
         t0 = time.time()
         plain = plain_fn(ds, st, o2, d2, tmax, any_hit=any_hit, touched=masks)
         torch.cuda.synchronize()
         plain_ms = (time.time() - t0) * 1e3
         res = compare_hits(f"{kind}/{tag}/{mode}", kernel, plain)
-        stats = kernel[1]
-        nodes = int(stats.node_visits.sum())
-        tests = int(stats.prim_tests.sum())
-        if kind == "traverse_treelets":
-            rows = {"nodes": int(masks[0].sum()) + int(masks[1].sum()),
-                    "treelets": int(masks[3].sum())}
-            prim_mask = masks[2]
-        elif kind == "traverse_kdbsp":
-            # the plain walker marks interior and leaf rows alike; the row's
-            # own leaf flag tells them apart
-            is_leaf = ds.alt_nodes.view(torch.int32)[:, 4] != 0
-            rows = {"nodes": int((masks[0] & ~is_leaf).sum()),
-                    "leaves": int((masks[0] & is_leaf).sum()), "treelets": 0}
-            prim_mask = masks[1]
-        else:
-            rows = {"nodes": int(masks[0].sum()), "treelets": 0}
-            prim_mask = masks[1]
-        rows["triangles"] = int((prim_mask & is_tri).sum())
-        rows["quadrics"] = int((prim_mask & ~is_tri).sum())
         live = int((tmax > 0).sum())
-        bytes_moved = (spec["node_row_bytes"] * rows["nodes"]
-                       + KD_LEAF_ROW_BYTES * rows.get("leaves", 0)
-                       + TRI_ROW_BYTES * rows["triangles"]
-                       + QUADRIC_ROW_BYTES * rows["quadrics"]
-                       + TREELET_REF_BYTES * rows["treelets"]
-                       + RAY_LIVE_BYTES * live + RAY_BYTES * n)
-        ops = spec["ops_per_node"] * nodes + OPS_PER_PRIM * tests
-        by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        by_ops = ops / FP32_OPS_PER_S * 1e3
         lib_fmad = fmad_libs[kind]
+
+        def run(lib, tmax=tmax, any_hit=any_hit):
+            return call(ds, st, o2, d2, tmax, any_hit=any_hit, lib=lib)
+
         res.update(
             kernel_ms=time_ms(lambda: call(
                 ds, st, o2, d2, tmax, any_hit=any_hit), 10),
+            kernel_alone_ms=kernel_alone_ms(run, spec["mod"].get_lib()),
             kernel_cold_l2_ms=time_cold_ms(lambda: call(
                 ds, st, o2, d2, tmax, any_hit=any_hit), 10, flush),
             kernel_nostats_ms=time_ms(lambda: call(
                 ds, st, o2, d2, tmax, any_hit=any_hit, with_stats=False), 10),
             kernel_fmad_true_ms=time_ms(lambda: call(
                 ds, st, o2, d2, tmax, any_hit=any_hit, lib=lib_fmad), 10),
-            plain_ms=plain_ms, node_visits=nodes,
-            leaf_visits=int(stats.leaf_visits.sum()), prim_tests=tests,
-            distinct_rows_read=rows, bytes_moved_at_least=bytes_moved,
-            bytes_if_every_visit_missed_cache=(
-                spec["node_row_bytes"] * nodes + TRI_ROW_BYTES * tests
-                + (KD_LEAF_ROW_BYTES * int(stats.leaf_visits.sum())
-                   if kind == "traverse_kdbsp" else 0)),
-            float_ops=ops, bound_ms=max(by_bytes, by_ops),
-            bound_by="bytes" if by_bytes >= by_ops else "operations")
+            plain_ms=plain_ms,
+            **table_bound(kind, ds, masks, kernel[1], live, n))
+        if variants:
+            res["variants"] = variant_timing(
+                run, spec["mod"].get_lib(), variants,
+                lambda name, got, mode=mode, plain=plain: compare_hits(
+                    f"{kind}/{tag}/{mode}/variant {name}", got, plain))
         fm = call(ds, st, o2, d2, tmax, any_hit=any_hit, lib=lib_fmad)
         res["fmad_true_prim_mismatch"] = int((fm[0].prim != plain[0].prim).sum())
         res["fmad_true_counter_mismatch"] = int(
@@ -1029,6 +1189,37 @@ def main_shape_timing(kind, tables, rays, fmad_libs, tag):
         if mode == "closest":
             out["prims"] = kernel[0].prim
     return out
+
+
+def fallback_timing(tables, o, d, tmax, any_hit, variants=None):
+    """K3 as the re-queue driver calls it for the rays whose treelet list
+    overflowed: every ray of the batch, tmax 0 on all others, no counters.
+    The kernel is held against the plain walker on those rays; the wrapper
+    call and the kernel alone are timed, and each build of `variants` beside
+    the shipped one. bound_ms is `table_bound` of the live rays only: the
+    rows they read, their rays read and their records written."""
+    ds, st = tables
+    masks = touched_masks("traverse_treelets", ds, o.device)
+    plain = trav.intersect_two_level(ds, st, o, d, tmax, any_hit=any_hit,
+                                     touched=masks)
+    tag = f"traverse_treelets/fallback/{'any' if any_hit else 'closest'}"
+
+    def run(lib):
+        return tt.intersect_treelets_cuda(ds, st, o, d, tmax, any_hit=any_hit,
+                                          with_stats=False, lib=lib)
+
+    res = compare_hits(tag, run(None), plain, with_stats=False)
+    live = int((tmax > 0).sum())
+    res.update(
+        rays=o.shape[0], live_rays=live,
+        kernel_ms=time_ms(lambda: run(None), 10),
+        kernel_alone_ms=kernel_alone_ms(run, tt.get_lib()),
+        **table_bound("traverse_treelets", ds, masks, plain[1], live, live))
+    if variants:
+        res["variants"] = variant_timing(
+            run, tt.get_lib(), variants, lambda name, got: compare_hits(
+                f"{tag}/variant {name}", got, plain, with_stats=False))
+    return res
 
 
 def as_bits(x: torch.Tensor) -> torch.Tensor:
@@ -1057,7 +1248,7 @@ def checked_requeue(ds, st, o, d, tmax, r_list, any_hit, tag, touched=None):
     [...]} takes the plain versions' row marks. Returns (the driver's (Hit,
     stats), K4's lists, one dict a pass with K5's inputs and records and its
     live pairs, the plain versions' ms, the largest |kernel - plain| of each
-    kernel)."""
+    kernel, the tmax its K3 fallback was called with)."""
     lists, passes = [], []
     plain_ms = {"bin_rays": 0.0, "walk_pairs": []}
     err = {"bin_rays": 0.0, "walk_pairs": 0.0}
@@ -1098,15 +1289,22 @@ def checked_requeue(ds, st, o, d, tmax, r_list, any_hit, tag, touched=None):
                            rays_with_pairs=int(torch.unique(ray[live]).numel())))
         return rec
 
-    out = tr._requeue(bin_fn, walk, functools.partial(
-        tt.intersect_treelets_cuda, with_stats=False), ds, st, o, d, tmax,
-        any_hit=any_hit, r_list=r_list)
+    fallback_tmax = []
+
+    def fallback(ds, st, o, d, tmax, any_hit):
+        fallback_tmax.append(tmax)
+        return tt.intersect_treelets_cuda(ds, st, o, d, tmax, any_hit=any_hit,
+                                          with_stats=False)
+
+    out = tr._requeue(bin_fn, walk, fallback, ds, st, o, d, tmax,
+                      any_hit=any_hit, r_list=r_list)
+
     direct = tr.intersect_requeue(ds, st, o, d, tmax, any_hit=any_hit,
                                   r_list=r_list)
     check_bits(f"{tag}/intersect_requeue", trav.Hit._fields
                + trav.TraversalStats._fields, [*direct[0], *direct[1]],
                [*out[0], *out[1]])
-    return out, lists[0], passes, plain_ms, err
+    return out, lists[0], passes, plain_ms, err, fallback_tmax[0]
 
 
 def compare_requeue(tag, out, ref, any_hit, n_tris):
@@ -1151,7 +1349,7 @@ def check_requeue(cases, checks):
             for any_hit in (False, True):
                 mode = "any" if any_hit else "closest"
                 tag = f"traverse_requeue/{name}/r{r_list}/{mode}"
-                out, lists, passes, plain_ms, err = checked_requeue(
+                out, lists, passes, plain_ms, err, _ = checked_requeue(
                     ds, st, o, d, tmax, r_list, any_hit, tag)
                 ref = trav.intersect_two_level(ds, st, o, d, tmax,
                                                any_hit=any_hit)
@@ -1175,11 +1373,15 @@ def check_requeue(cases, checks):
                 checks[tag] = res
 
 
-def requeue_shape_timing(tables, rays, fmad_lib, tag, k3_hits):
+def requeue_shape_timing(tables, rays, fmad_lib, tag, k3_hits, var_libs):
     """K4, K5 (both passes of one driver call) and the whole driver on
     `rays` (closest hit) and on the same rays cut to half the scene's
     diagonal (any hit), against their plain versions and, for the driver,
-    against K3's hits on the same rays (`k3_hits`, by mode).
+    against K3's hits on the same rays (`k3_hits`, by mode); and K3 as
+    the driver's fallback (`fallback_timing`). `var_libs` holds other builds
+    of the sources (source -> name -> library), each timed beside the
+    shipped one: of `traverse_requeue` as K4 and K5 here, of
+    `traverse_treelets` as the fallback.
 
     bound_ms is built as in main_shape_timing: for K4 the distinct top rows
     the plain version reads, the rays read and the lists written, against
@@ -1205,7 +1407,7 @@ def requeue_shape_timing(tables, rays, fmad_lib, tag, k3_hits):
                     torch.zeros(1, dtype=torch.int64, device=dev)],
             "treelets": [torch.zeros(t.shape[0], dtype=torch.bool, device=dev)
                          for t in (ds.tl_nodes, ds.tl_prims, ds.tl_offsets)]}
-        drv, lists, passes, plain_ms, err = checked_requeue(
+        drv, lists, passes, plain_ms, err, fb_tmax = checked_requeue(
             ds, st, o2, d2, tmax, tr.R_LIST, any_hit, f"{tag}/{mode}", touched)
         res = {"driver_vs_traverse_treelets": compare_requeue(
             f"{tag}/{mode}", drv, k3_hits[mode], any_hit, st.n_tris)}
@@ -1271,6 +1473,23 @@ def requeue_shape_timing(tables, rays, fmad_lib, tag, k3_hits):
                                 "treelets": int(tl_mask.sum())},
             dead_pair_bytes=dead_pair_bytes,
             max_abs_err=err["walk_pairs"], **bound(walk_bytes, walk_ops))
+        variants = var_libs.get("traverse_requeue")
+        if variants:
+            shipped = (tr.bin_rays_cuda(ds, st, o2, d2, tmax),
+                       [walk(p) for p in passes])
+            res["bin_rays"]["variants"] = variant_timing(
+                lambda lib: tr.bin_rays_cuda(ds, st, o2, d2, tmax, lib=lib),
+                tr.get_lib(), variants, lambda name, got: check_bits(
+                    f"{tag}/{mode}/bin_rays variant {name}",
+                    ("tid", "tnear", "ovf"), got, shipped[0]))
+            res["walk_pairs"]["variants"] = variant_timing(
+                lambda lib: [walk(p, lib=lib) for p in passes],
+                tr.get_lib(), variants, lambda name, got: [check_bits(
+                    f"{tag}/{mode}/walk_pairs variant {name} pass {i}",
+                    trav.PairRecords._fields, a, b)
+                    for i, (a, b) in enumerate(zip(got, shipped[1]))])
+        res["traverse_treelets_fallback"] = fallback_timing(
+            tables, o2, d2, fb_tmax, any_hit, var_libs.get("traverse_treelets"))
         res["driver_ms"] = time_ms(lambda: tr.intersect_requeue(
             ds, st, o2, d2, tmax, any_hit=any_hit), 10)
         res["driver_nostats_ms"] = time_ms(lambda: tr.intersect_requeue(

@@ -13,11 +13,10 @@
 // gather per lane and a packet would stall on a 347-prim leaf. None of that
 // is carried over: here ONE THREAD WALKS ONE RAY, pbrt's own recursion
 // unrolled (kdtreeaccel.cpp:410-532), with its own stack of KD_STACK
-// (node, tmin, tmax) entries in local memory. A node is one 32-byte row of
-// `nodes` (K,8): direction xyz and split offset as float32, then leaf flag,
-// above child (or a leaf's first prim row) and prim count as int32 bit
-// patterns, read as two 16-byte loads (a leaf needs only the second). A
-// leaf's `nprims` prim rows are read straight from `prim_rows` (P,32), as the
+// (node, tmin, tmax) entries. A node is one 32-byte row of `nodes` (K,8):
+// direction xyz and split offset as float32, then leaf flag, above child (or
+// a leaf's first prim row) and prim count as int32 bit patterns. A leaf's
+// `nprims` prim rows are read straight from `prim_rows` (P,32), as the
 // wide-BVH kernel reads them; the rows that pad a leaf run to a multiple of 4
 // are never read. Any number of rays, any table size.
 //
@@ -28,14 +27,26 @@
 // slowest lane of each warp where one thread loops over a fat leaf. On paper
 // the least time (distinct rows read over the memory rate, or the float32
 // operations over the float32 rate) is tens of times smaller. What the
-// design does about it: the near child is taken at once without touching the
-// stack and the far one is pushed only when the plane lies inside the cell,
-// a cell behind a hit already found is dropped when popped, a hit inside the
-// leaf's cell ends the walk, shadow rays leave at the first hit, dead lanes
-// (tmax 0) and rays that miss the world bounds leave before touching a
-// table, and all loads go through the read-only path. Staging the top of the
-// tree in shared memory, sorting rays and splitting fat leaves across a warp
-// are left for later work.
+// design does about it:
+// - one round trip a step: both 16-byte halves of a row are loaded together
+//   (the leaf flag no longer decides whether the plane half is fetched), and
+//   the next node's row is requested as soon as the child is chosen, ahead
+//   of the push and of the loop's branch;
+// - the newest KD_SHORT stack entries sit in shared memory (12 KB a block),
+//   so pushes and pops do not compete with the node rows for L1; the older
+//   entries of a deep walk go to local memory;
+// - the near child is taken without touching the stack, the far one is
+//   pushed only when the plane lies inside the cell, a popped cell behind a
+//   hit already found is dropped, a hit inside the leaf's cell ends the
+//   walk, shadow rays leave at the first hit, and dead lanes (tmax 0) and
+//   rays that miss the world bounds leave before touching a table.
+// On the H100 (PERF.md) either mechanism takes 1-5 % off a kernel
+// that has the other, and the two take 2-7 % off the kernel before them
+// timed alone in the same run; a stack wholly in shared memory (46 KB a
+// block at 30 levels) made it 21-41 % slower instead: fewer blocks fit an
+// SM. Sorting rays for
+// coherence and splitting fat leaves across the warp are left for later
+// work.
 //
 // Semantics are those of the plain PyTorch walker
 // tpupt_torch/accel/kdbsp.py `intersect_kdbsp`, operation for operation:
@@ -46,11 +57,53 @@
 #include "traverse_common.cuh"
 
 #define KD_STACK 64
+#define KD_THREADS 128
+// entries of a thread's stack kept in shared memory
+#define KD_SHORT 8
 
 namespace {
 
+// A thread's (node, tmin, tmax) stack of KD_STACK entries. The newest
+// KD_SHORT entries live in shared memory, slot k % KD_SHORT of the thread's
+// column ([slot][thread], so a warp's pushes fall in 32 banks); a push onto
+// a full window first moves the window's oldest entry to local memory, and
+// a pop below the window reads it back from there. Most pops find their
+// entry in shared memory, and local memory is touched only by rays whose
+// stack runs deeper than KD_SHORT.
+struct KdStack {
+  int* s_node;
+  float *s_tmin, *s_tmax;
+  int l_node[KD_STACK];
+  float l_tmin[KD_STACK], l_tmax[KD_STACK];
+  int lo = 0;  // entries lo..sp-1 are in shared memory
+
+  __device__ explicit KdStack(unsigned char* smem) {
+    s_node = (int*)smem + threadIdx.x;
+    s_tmin = (float*)smem + KD_SHORT * KD_THREADS + threadIdx.x;
+    s_tmax = (float*)smem + 2 * KD_SHORT * KD_THREADS + threadIdx.x;
+  }
+  __device__ void put(int k, int nd, float a, float b) {
+    if (k - lo == KD_SHORT) {
+      int q = (lo % KD_SHORT) * KD_THREADS;
+      l_node[lo] = s_node[q]; l_tmin[lo] = s_tmin[q]; l_tmax[lo] = s_tmax[q];
+      lo++;
+    }
+    int q = (k % KD_SHORT) * KD_THREADS;
+    s_node[q] = nd; s_tmin[q] = a; s_tmax[q] = b;
+  }
+  __device__ void get(int k, int& nd, float& a, float& b) {
+    if (k >= lo) {
+      int q = (k % KD_SHORT) * KD_THREADS;
+      nd = s_node[q]; a = s_tmin[q]; b = s_tmax[q];
+    } else {
+      nd = l_node[k]; a = l_tmin[k]; b = l_tmax[k];
+      lo = k;
+    }
+  }
+};
+
 template <bool ANY_HIT, bool HAS_SPHERES, bool WITH_STATS>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(KD_THREADS)
 traverse_kdbsp_kernel(const float4* __restrict__ nodes,
                       const float4* __restrict__ prim_rows, int n_rows,
                       const float* __restrict__ world_lo,
@@ -62,6 +115,7 @@ traverse_kdbsp_kernel(const float4* __restrict__ nodes,
                       int* __restrict__ ridx_out, int* __restrict__ nodes_out,
                       int* __restrict__ leaves_out, int* __restrict__ tests_out,
                       int* __restrict__ deepest) {
+  __shared__ __align__(16) unsigned char kd_smem[KD_SHORT * KD_THREADS * 12];
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
@@ -85,40 +139,39 @@ traverse_kdbsp_kernel(const float4* __restrict__ nodes,
         min3(fmaxf(tlx, thx), fmaxf(tly, thy), fmaxf(tlz, thz)), h.t);
 
     if (!(tmin > tmaxn)) {
-      int snode[KD_STACK];
-      float stmin[KD_STACK], stmax[KD_STACK];
+      KdStack stack(kd_smem);
       int sp = 0;
       bool overflow = false;
       int node = 0;
-      bool have = true;
-
+      // the row of `node`: both halves issued together, and the next row
+      // issued as soon as the next node is known, ahead of the push
+      float4 na = __ldg(nodes), nb = __ldg(nodes + 1);
       while (true) {
-        if (!have) {
-          if (sp == 0) break;
-          --sp;
-          node = snode[sp];
-          tmin = stmin[sp];
-          tmaxn = stmax[sp];
-          have = true;
-        }
-        // a hit closer than the cell's entry: drop the cell
-        if (h.t < tmin) {
-          have = false;
-          continue;
-        }
-        float4 nb = __ldg(nodes + 2 * (size_t)node + 1);
         int abv = __float_as_int(nb.y);
         if (__float_as_int(nb.x) != 0) {
           if (WITH_STATS) h.n_leaves++;
           leaf_step<HAS_SPHERES, WITH_STATS>(prim_rows, n_rows, abv,
                                              __float_as_int(nb.z), r, h);
-          have = false;
           // a hit inside the leaf's cell ends the walk
           if (h.t <= tmaxn) break;
           if (ANY_HIT && h.gid >= 0) break;
+          // pop, dropping cells that begin behind a hit already found (a
+          // cell reached by descending never does: neither its entry nor
+          // the hit changed since its parent passed this test)
+          bool got = false;
+          while (sp > 0) {
+            --sp;
+            stack.get(sp, node, tmin, tmaxn);
+            if (!(h.t < tmin)) {
+              got = true;
+              break;
+            }
+          }
+          if (!got) break;
+          na = __ldg(nodes + 2 * (size_t)node);
+          nb = __ldg(nodes + 2 * (size_t)node + 1);
         } else {
           if (WITH_STATS) h.n_nodes++;
-          float4 na = __ldg(nodes + 2 * (size_t)node);
           // projected plane distance (rbsp.cpp:68-80), term by term
           float op = r.ox * na.x + r.oy * na.y + r.oz * na.z;
           float dp = r.dx * na.x + r.dy * na.y + r.dz * na.z;
@@ -129,21 +182,17 @@ traverse_kdbsp_kernel(const float4* __restrict__ nodes,
           // pbrt's if / elif (kdtreeaccel.cpp:430-450)
           bool only_first = (t_plane > tmaxn) || (t_plane <= 0.0f);
           bool only_second = (t_plane < tmin) && !only_first;
-          if (only_first) {
-            node = first_child;
-          } else if (only_second) {
-            node = second_child;
-          } else {
+          node = only_second ? second_child : first_child;
+          na = __ldg(nodes + 2 * (size_t)node);
+          nb = __ldg(nodes + 2 * (size_t)node + 1);
+          if (!only_first && !only_second) {
             // a push past KD_STACK is not written, and is reported
             if (sp < KD_STACK) {
-              snode[sp] = second_child;
-              stmin[sp] = t_plane;
-              stmax[sp] = tmaxn;
+              stack.put(sp, second_child, t_plane, tmaxn);
               sp++;
             } else {
               overflow = true;
             }
-            node = first_child;
             tmaxn = t_plane;
           }
         }
@@ -171,11 +220,10 @@ extern "C" int tpupt_traverse_kdbsp(
     void* deepest, int any_hit, int has_spheres, int with_stats,
     void* stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
+  const int blocks = (n + KD_THREADS - 1) / KD_THREADS;
   cudaStream_t s = (cudaStream_t)stream;
 #define LAUNCH(A, H, W)                                                       \
-  traverse_kdbsp_kernel<A, H, W><<<blocks, threads, 0, s>>>(                  \
+  traverse_kdbsp_kernel<A, H, W><<<blocks, KD_THREADS, 0, s>>>(               \
       (const float4*)nodes, (const float4*)prim_rows, n_rows,                 \
       (const float*)world_lo, (const float*)world_hi, (const float*)o,        \
       (const float*)d, (const float*)tmax, n, (float*)t_out, (float*)b1_out,  \

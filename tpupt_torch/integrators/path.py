@@ -17,10 +17,13 @@ Every traversal goes through the wrapper `pick_traversal` returns:
 `ops.traverse_kdbsp.intersect_kdbsp_cuda` for the kd / RBSP / BSP trees; each
 launches its CUDA kernel for tensors on a card and runs its plain PyTorch
 walker for CPU tensors.
-Rays are not sorted for coherence: one thread walks one ray, so the order of
-the batch does not change the answer. The shading chain is written
-out-of-place; traversal inputs and hit records are detached, so a later
-change can switch autograd on over the material and light tables.
+Rays are not sorted for coherence, where the JAX package sorts every call of
+its two-level path and the secondary and shadow rays of its kd path: one
+thread walks one ray, so the order changes no answer, and on the H100 that
+sort cost more than it saved on each of those paths (PERF.md). The shading
+chain is written out-of-place; traversal inputs and hit records are
+detached, so a later change can switch autograd on over the material and
+light tables.
 """
 
 from __future__ import annotations
