@@ -23,14 +23,16 @@ list overflowed, `traverse_treelets`.
 The launch counts show that each render went through its kernels, and each
 render is compared with one made by the kernels' plain versions (on a
 256x256 crop in the middle of the image: the plain walkers take a second or
-more a traversal). K2 and K3 are also held against their plain versions on
-batches of 98 % dead rays, of dead rays only, of one ray and of 131,073
-rays; at the main shape K1, K2 and K3 print the wrapper call and the kernel
-alone (CUDA events around the launch), and K3 is timed as the re-queue
-driver's fallback launch too, with its bound. There is no fallback: without a
-CUDA device, without the `tpupt_torch` package beside it, with a kernel that
-does not build, launch or agree, or with any failed check, it exits with a
-code other than 0 and prints no result line.
+more a traversal). K1, K2 and K3 are also held against their plain versions
+on batches of 98 % dead rays, of dead rays only, of one ray and of 131,073
+rays; at the main shape K1, K2, K3 and K5 print the wrapper call and the
+kernel alone (CUDA events around the launch), and K3 is timed as the
+re-queue driver's fallback launch too, with its bound; K5 is held against
+its plain version inside the driver's own pass loop (each ray's packed best
+hit, the winners' payloads and the counters, to the bit). There is no
+fallback: without a CUDA device, without the `tpupt_torch` package beside
+it, with a kernel that does not build, launch or agree, or with any failed
+check, it exits with a code other than 0 and prints no result line.
 
 Output: one JSON object per phase (`env`, `kernels`, `main_path`), then the
 card's name and power limit, the `{"kernels": [...]}` line, and last
@@ -161,9 +163,13 @@ REQUEUE_VS_K3_MEAN_REL = 1e-6   # mean image of the re-queue render against K3's
 # writes an 8-byte (treelet, entry t) record per list slot and one count a ray
 OPS_PER_BIN_NODE = 8 * 30
 LIST_RECORD_BYTES = 8
-# per live pair of a walk_pairs launch: key and ray read (8 B), the record
-# written (t, b1, b2, gid, row id and three counters: 32 B)
-PAIR_BYTES = 8 + 32
+# walk_pairs moves, per live pair, its key and ray (8 B); per ray with a pair
+# in the pass, its start t, origin and direction read and its 64-bit word and
+# three counters written (4 + 24 + 8 + 12 B); per ray whose winner is of this
+# pass, the winner's (gid, row, b1, b2) written (16 B)
+PAIR_BYTES = 8
+RAY_PASS_BYTES = 4 + 24 + 8 + 12
+WINNER_BYTES = 16
 
 
 def fail(msg: str) -> None:
@@ -237,15 +243,16 @@ def kernel_alone_ms(run, lib, reps: int = 10) -> float:
     return sum(s.elapsed_time(e) for s, e in timed.events) / reps
 
 
-def variant_timing(run, shipped_lib, variants, check) -> dict:
+def variant_timing(run, shipped_lib, variants, check, check_run=None) -> dict:
     """Other builds of a kernel source (`variants`: name -> library) beside
-    the shipped one: each variant's `run(lib)` output is held against the
-    plain version by `check(name, output)`, then every build's wrapper call
-    (`call_ms`) and kernel alone (`kernel_alone_ms`) are timed in turns:
-    every build in order, then in reverse order; two figures a build."""
+    the shipped one: each variant's `check_run(lib)` output (default
+    `run(lib)`) is held against the plain version by `check(name, output)`,
+    then every build's wrapper call (`call_ms`) and kernel alone
+    (`kernel_alone_ms`) are timed in turns: every build in order, then in
+    reverse order; two figures a build."""
     libs = [("shipped", shipped_lib)] + list(variants.items())
     for name, lib in libs[1:]:
-        check(name, run(lib))
+        check(name, (check_run or run)(lib))
     out = {"call_ms": {n: [] for n, _ in libs},
            "kernel_alone_ms": {n: [] for n, _ in libs}}
     for name, lib in libs + libs[::-1]:
@@ -643,7 +650,12 @@ def main(argv) -> int:
                      if base[0] in ("kdtree/museum_1k", "rbsp3/museum_1k")
                      for c in edge_cases(*base, seed=37)]
 
-        check_cases("traverse_wide", wide_cases, checks)
+        # K1 also on the dead-heavy, all-dead, one-ray and 131,073-ray
+        # batches, with quadrics and on the museum's mixed rays
+        check_cases("traverse_wide", wide_cases + [
+            c for base in wide_cases if base[0] in ("quadric_kinds",
+                                                    "museum_65k")
+            for c in edge_cases(*base, seed=43)], checks)
         check_cases("traverse_treelets", treelet_cases + [
             c for base in treelet_cases for c in edge_cases(*base, seed=41)],
             checks)
@@ -890,7 +902,9 @@ def main(argv) -> int:
           "kernels_at_main_shape_museum_65k": shape_kd})
 
     kernels = []
-    shapes = {"traverse_wide": shape, "traverse_treelets": shape,
+    # K1 at the shape where the main path launches it: the 63,558-triangle
+    # museum's secondary rays (its 1M-museum figures beside them)
+    shapes = {"traverse_wide": shape_kd, "traverse_treelets": shape,
               "traverse_kdbsp": shape_kd}
     for kind, spec in KERNELS.items():
         sh = shapes[kind][kind]
@@ -918,6 +932,18 @@ def main(argv) -> int:
             "rays_per_launch": shapes[kind]["rays"],
             "tolerance": f"valid/prim/counters exact, t/b1/b2 <= {ULP_LIMIT} ulp",
         })
+        if kind == "traverse_wide":
+            w1m = shape["traverse_wide"]
+            kernels[-1]["at_museum_1m"] = {
+                "ms": w1m["closest"]["kernel_ms"],
+                "any_hit_ms": w1m["any"]["kernel_ms"],
+                "kernel_alone_ms": w1m["closest"]["kernel_alone_ms"],
+                "any_hit_kernel_alone_ms": w1m["any"]["kernel_alone_ms"],
+                "bound_ms": w1m["closest"]["bound_ms"],
+                "any_hit_bound_ms": w1m["any"]["bound_ms"],
+                "plain_ms": w1m["closest"]["plain_ms"],
+                "main_path_launches": counts["traverse_wide"],
+                "rays_per_launch": shape["rays"]}
         if kind == "traverse_treelets":
             for mode in ("closest", "any"):
                 fb = shape["traverse_requeue"][mode]["traverse_treelets_fallback"]
@@ -942,6 +968,11 @@ def main(argv) -> int:
             "library_ms": None,
             "any_hit_ms": rq["any"][kind]["kernel_ms"],
             "any_hit_bound_ms": rq["any"][kind]["bound_ms"],
+            **({"kernel_alone_ms": sh["kernel_alone_ms"],
+                "any_hit_kernel_alone_ms": rq["any"][kind]["kernel_alone_ms"],
+                "dead_pair_bytes": sh["dead_pair_bytes"]
+                + rq["any"][kind]["dead_pair_bytes"]}
+               if kind == "walk_pairs" else {}),
             "rays_per_launch": shape["rays"],
             "per": ("one launch" if kind == "bin_rays"
                     else "one driver call: pass 0 + pass 1, two launches"),
@@ -1239,16 +1270,23 @@ def check_bits(tag, names, kernel, plain) -> float:
                 for a, b in zip(kernel, plain) if a.numel()), default=0.0)
 
 
+def clone_best(best):
+    return trav.RayBest(*[x.clone() for x in best])
+
+
 def checked_requeue(ds, st, o, d, tmax, r_list, any_hit, tag, touched=None):
     """One closest / any hit call of the re-queue driver's own pass loop
     (`tr._requeue`, what `intersect_requeue` runs) with checking wrappers in
     place of K4 and K5: each launches its kernel, runs the plain version on
-    the same inputs, holds the two bit for bit (K5 also without counters)
-    and hands the kernel's result on. `touched` = {"top": [...], "treelets":
-    [...]} takes the plain versions' row marks. Returns (the driver's (Hit,
-    stats), K4's lists, one dict a pass with K5's inputs and records and its
-    live pairs, the plain versions' ms, the largest |kernel - plain| of each
-    kernel, the tmax its K3 fallback was called with)."""
+    the same inputs (K5 on a copy of the rays' best hits), holds the two bit
+    for bit (K5: every ray's word, the payloads and the counters; also
+    without counters, which must then stay untouched) and hands the
+    kernel's result on. `touched` = {"top": [...], "treelets": [...]} takes
+    the plain versions' row marks. Returns (the driver's (Hit, stats), K4's
+    lists, one dict a pass with K5's inputs, the rays' best hits before and
+    after it and its live pairs, the plain versions' ms, the largest
+    |kernel - plain| of each kernel, the tmax its K3 fallback was called
+    with)."""
     lists, passes = [], []
     plain_ms = {"bin_rays": 0.0, "walk_pairs": []}
     err = {"bin_rays": 0.0, "walk_pairs": 0.0}
@@ -1269,25 +1307,40 @@ def checked_requeue(ds, st, o, d, tmax, r_list, any_hit, tag, touched=None):
         lists.append(out)
         return out
 
-    def walk(ds, st, o, d, key, ray, t_in, any_hit):
-        rec = tr.walk_pairs_cuda(ds, st, o, d, key, ray, t_in, any_hit=any_hit)
+    def walk(ds, st, o, d, key, ray, work, t_in, best, slot_base, any_hit,
+             with_stats):
+        before, work0 = clone_best(best), work.clone()
+        bare = tr.walk_pairs_cuda(ds, st, o, d, key, ray, work0.clone(), t_in,
+                                  clone_best(best), slot_base,
+                                  any_hit=any_hit, with_stats=False)
+        tr.walk_pairs_cuda(ds, st, o, d, key, ray, work, t_in, best,
+                           slot_base, any_hit=any_hit, with_stats=with_stats)
         plain, ms = plain_timed(lambda: trav.walk_pairs(
-            ds, st, o, d, key, ray, t_in, any_hit=any_hit,
+            ds, st, o, d, key, ray, work0.clone(), t_in, clone_best(before),
+            slot_base, any_hit=any_hit, with_stats=with_stats,
             touched=touched and touched["treelets"]))
         plain_ms["walk_pairs"].append(ms)
         ptag = f"{tag}/walk_pairs/pass{len(passes)}"
-        bare = tr.walk_pairs_cuda(ds, st, o, d, key, ray, t_in,
-                                  any_hit=any_hit, with_stats=False)
         err["walk_pairs"] = max(
             err["walk_pairs"],
-            check_bits(ptag, trav.PairRecords._fields, rec, plain),
-            check_bits(ptag + "/nostats", trav.PairRecords._fields[:5],
-                       bare[:5], plain[:5]))
+            check_bits(ptag, trav.RayBest._fields, best, plain),
+            check_bits(ptag + "/nostats", trav.RayBest._fields,
+                       bare, plain[:2] + before[2:]))
         live = key < trav.pair_sentinel(st)
-        passes.append(dict(key=key, ray=ray, t_in=t_in, rec=rec,
-                           live_pairs=int(live.sum()),
-                           rays_with_pairs=int(torch.unique(ray[live]).numel())))
-        return rec
+        n_pairs, n_walked = int(live.sum()), int(work0[0])
+        if n_walked < n_pairs or not bool(live[:n_pairs].all()):
+            fail(f"{ptag}: the kernel walks {n_walked} slots, not the "
+                 f"{n_pairs} live pairs")
+        rays = torch.unique(ray[live])
+        winners = ((best.word & trav.NO_SLOT) >= slot_base) & (
+            (best.word & trav.NO_SLOT) < slot_base + key.shape[0])
+        passes.append(dict(key=key, ray=ray, work=work0, t_in=t_in,
+                           slot_base=slot_base, before=before,
+                           after=clone_best(best), live_pairs=n_pairs,
+                           walked_slots=n_walked,
+                           rays_with_pairs=int(rays.numel()),
+                           winners=int(winners.sum())))
+        return best
 
     fallback_tmax = []
 
@@ -1305,6 +1358,35 @@ def checked_requeue(ds, st, o, d, tmax, r_list, any_hit, tag, touched=None):
                + trav.TraversalStats._fields, [*direct[0], *direct[1]],
                [*out[0], *out[1]])
     return out, lists[0], passes, plain_ms, err, fallback_tmax[0]
+
+
+def check_live_count_cap(ds, st, o, d, p, any_hit, tag):
+    """K5 handed only the live pairs of pass 0 `p`, into a payload of
+    exactly their slots, given a live count 4,096 past them, against K5
+    given the count itself: it must walk the pairs there are and read and
+    write nothing past them. Fails the run on any miss."""
+    n = p["live_pairs"]
+    key, ray = p["key"][:n].contiguous(), p["ray"][:n].contiguous()
+
+    def run(count):
+        best = clone_best(p["before"])._replace(payload=torch.zeros(
+            (n, 4), dtype=torch.int32, device=key.device))
+        work = torch.tensor([count, 0], dtype=torch.int32, device=key.device)
+        return tr.walk_pairs_cuda(ds, st, o, d, key, ray, work, p["t_in"],
+                                  best, 0, any_hit=any_hit)
+    return check_bits(f"{tag}/walk_pairs/live_count_past_the_pairs",
+                      trav.RayBest._fields, run(n + 4096), run(n))
+
+
+def walk_pass(ds, st, o, d, p, any_hit, lib=None, with_stats=True,
+              best=None):
+    """K5 once more on pass `p` of `checked_requeue` (a fresh copy of its
+    work counter), on `best` (default: a copy of the rays' best hits before
+    the pass)."""
+    return tr.walk_pairs_cuda(
+        ds, st, o, d, p["key"], p["ray"], p["work"].clone(), p["t_in"],
+        clone_best(p["before"]) if best is None else best, p["slot_base"],
+        any_hit=any_hit, with_stats=with_stats, lib=lib)
 
 
 def compare_requeue(tag, out, ref, any_hit, n_tris):
@@ -1343,7 +1425,8 @@ def compare_requeue(tag, out, ref, any_hit, n_tris):
 def check_requeue(cases, checks):
     """K4 and K5 against their plain versions, and the whole driver against
     the two-level walker, on each case, closest and any hit, at each list
-    capacity of REQUEUE_R_LISTS; fails the run on any miss."""
+    capacity of REQUEUE_R_LISTS (at capacity 16 also K5 given a live count
+    past its pairs, `check_live_count_cap`); fails the run on any miss."""
     for name, ds, st, o, d, tmax in cases:
         for r_list in REQUEUE_R_LISTS:
             for any_hit in (False, True):
@@ -1354,6 +1437,11 @@ def check_requeue(cases, checks):
                 ref = trav.intersect_two_level(ds, st, o, d, tmax,
                                                any_hit=any_hit)
                 res = compare_requeue(tag, out, ref, any_hit, st.n_tris)
+                if r_list == tr.R_LIST:
+                    err["walk_pairs"] = max(err["walk_pairs"],
+                                            check_live_count_cap(
+                                                ds, st, o, d, passes[0],
+                                                any_hit, tag))
                 res.update(
                     max_abs_err=err,
                     overflowed_rays=int((lists[2] > 0).sum()),
@@ -1362,9 +1450,9 @@ def check_requeue(cases, checks):
                     bin_rays_ms=time_ms(lambda: tr.bin_rays_cuda(
                         ds, st, o, d, tmax, r_list), 5),
                     walk_pairs_ms=[time_ms(
-                        lambda p=p: tr.walk_pairs_cuda(
-                            ds, st, o, d, p["key"], p["ray"], p["t_in"],
-                            any_hit=any_hit), 5) for p in passes],
+                        lambda p=p, b=clone_best(p["before"]): walk_pass(
+                            ds, st, o, d, p, any_hit, best=b), 5)
+                        for p in passes],
                     driver_ms=time_ms(lambda: tr.intersect_requeue(
                         ds, st, o, d, tmax, any_hit=any_hit,
                         r_list=r_list), 5))
@@ -1387,10 +1475,12 @@ def requeue_shape_timing(tables, rays, fmad_lib, tag, k3_hits, var_libs):
     the plain version reads, the rays read and the lists written, against
     its top-tree steps; for K5 the distinct treelet node rows, prim rows and
     offsets the plain version reads over both passes, and in each pass the
-    live pairs read and written and their rays' origin, direction and start
-    t read, against the node steps and prim tests of both passes. The
-    records of the dead pair slots that a launch over every slot also writes
-    are work the walk does not need: `dead_pair_bytes`, not in the bound."""
+    live pairs' keys and rays, each ray with a pair (its start t, origin and
+    direction read, its word and counters written) and each winner's
+    payload, against the node steps and prim tests of both passes. The
+    kernel walks only the live pairs (`work` on the card):
+    `dead_pair_bytes` counts what it moves for the dead pair slots of the
+    sorted key array, 0 where it walks exactly the live pairs (checked)."""
     ds, st = tables
     o2, d2, tmax2 = rays
     n, dev = o2.shape[0], o2.device
@@ -1417,18 +1507,19 @@ def requeue_shape_timing(tables, rays, fmad_lib, tag, k3_hits, var_libs):
                      + (LIST_RECORD_BYTES * tr.R_LIST + 4) * n)
         bin_ops = OPS_PER_BIN_NODE * steps
         node_mask, prim_mask, tl_mask = touched["treelets"]
-        nodes = sum(int(p["rec"].node_visits.sum()) for p in passes)
-        tests = sum(int(p["rec"].prim_tests.sum()) for p in passes)
+        walk_stats = [(p["after"][2:], p["before"][2:]) for p in passes]
+        nodes = sum(int((a[0] - b[0]).sum()) for a, b in walk_stats)
+        tests = sum(int((a[2] - b[2]).sum()) for a, b in walk_stats)
         walk_bytes = (NODE_ROW_BYTES * int(node_mask.sum())
                       + TRI_ROW_BYTES * int((prim_mask & is_tri).sum())
                       + QUADRIC_ROW_BYTES * int((prim_mask & ~is_tri).sum())
                       + TREELET_REF_BYTES * int(tl_mask.sum())
                       + sum(PAIR_BYTES * p["live_pairs"]
-                            + (4 + RAY_LIVE_BYTES) * p["rays_with_pairs"]
-                            for p in passes))
-        # what the launch over every pair slot moves beyond that: the dead
-        # slots' key and ray read and empty record written
-        dead_pair_bytes = sum(PAIR_BYTES * (p["key"].shape[0] - p["live_pairs"])
+                            + RAY_PASS_BYTES * p["rays_with_pairs"]
+                            + WINNER_BYTES * p["winners"] for p in passes))
+        # the key, ray and rays' bytes of the pair slots the kernel walks
+        # beyond the live ones
+        dead_pair_bytes = sum(PAIR_BYTES * (p["walked_slots"] - p["live_pairs"])
                               for p in passes)
         walk_ops = OPS_PER_NODE * nodes + OPS_PER_PRIM * tests
 
@@ -1439,9 +1530,10 @@ def requeue_shape_timing(tables, rays, fmad_lib, tag, k3_hits, var_libs):
                         bound_ms=max(by_bytes, by_ops),
                         bound_by="bytes" if by_bytes >= by_ops else "operations")
 
-        def walk(p, **kw):
-            return tr.walk_pairs_cuda(ds, st, o2, d2, p["key"], p["ray"],
-                                      p["t_in"], any_hit=any_hit, **kw)
+        scratch = [clone_best(p["before"]) for p in passes]
+
+        def walk(p, best, **kw):
+            return walk_pass(ds, st, o2, d2, p, any_hit, best=best, **kw)
 
         res["bin_rays"] = dict(
             kernel_ms=time_ms(lambda: tr.bin_rays_cuda(ds, st, o2, d2, tmax), 10),
@@ -1453,19 +1545,31 @@ def requeue_shape_timing(tables, rays, fmad_lib, tag, k3_hits, var_libs):
             distinct_top_rows=top_rows,
             overflowed_share=float((lists[2] > 0).sum()) / max(live, 1),
             max_abs_err=err["bin_rays"], **bound(bin_bytes, bin_ops))
-        per_pass = [time_ms(lambda p=p: walk(p), 10) for p in passes]
+        # timed on a scratch copy of each pass's start state, which the
+        # repeated launches lower again and again: the walks, and so the
+        # time, do not depend on it (they start from t_in)
+        per_pass = [time_ms(lambda p=p, b=b: walk(p, b), 10)
+                    for p, b in zip(passes, scratch)]
         res["walk_pairs"] = dict(
             kernel_ms=sum(per_pass), kernel_ms_per_pass=per_pass,
-            kernel_cold_l2_ms=sum(time_cold_ms(lambda p=p: walk(p), 10, flush)
-                                  for p in passes),
-            kernel_nostats_ms=sum(time_ms(lambda p=p: walk(p, with_stats=False),
-                                          10) for p in passes),
-            kernel_fmad_true_ms=sum(time_ms(lambda p=p: walk(p, lib=fmad_lib),
-                                            10) for p in passes),
+            kernel_alone_ms=kernel_alone_ms(
+                lambda lib: [walk(p, b, lib=lib)
+                             for p, b in zip(passes, scratch)], tr.get_lib()),
+            kernel_cold_l2_ms=sum(time_cold_ms(lambda p=p, b=b: walk(p, b),
+                                               10, flush)
+                                  for p, b in zip(passes, scratch)),
+            kernel_nostats_ms=sum(time_ms(
+                lambda p=p, b=b: walk(p, b, with_stats=False), 10)
+                for p, b in zip(passes, scratch)),
+            kernel_fmad_true_ms=sum(time_ms(
+                lambda p=p, b=b: walk(p, b, lib=fmad_lib), 10)
+                for p, b in zip(passes, scratch)),
             plain_ms=sum(plain_ms["walk_pairs"]),
             plain_ms_per_pass=plain_ms["walk_pairs"],
-            pairs_per_launch=passes[0]["key"].shape[0],
+            pair_slots_per_pass=passes[0]["key"].shape[0],
             live_pairs_per_pass=[p["live_pairs"] for p in passes],
+            rays_with_pairs_per_pass=[p["rays_with_pairs"] for p in passes],
+            winners_per_pass=[p["winners"] for p in passes],
             node_visits=nodes, prim_tests=tests,
             distinct_rows_read={"nodes": int(node_mask.sum()),
                                 "triangles": int((prim_mask & is_tri).sum()),
@@ -1475,19 +1579,20 @@ def requeue_shape_timing(tables, rays, fmad_lib, tag, k3_hits, var_libs):
             max_abs_err=err["walk_pairs"], **bound(walk_bytes, walk_ops))
         variants = var_libs.get("traverse_requeue")
         if variants:
-            shipped = (tr.bin_rays_cuda(ds, st, o2, d2, tmax),
-                       [walk(p) for p in passes])
             res["bin_rays"]["variants"] = variant_timing(
                 lambda lib: tr.bin_rays_cuda(ds, st, o2, d2, tmax, lib=lib),
                 tr.get_lib(), variants, lambda name, got: check_bits(
                     f"{tag}/{mode}/bin_rays variant {name}",
-                    ("tid", "tnear", "ovf"), got, shipped[0]))
+                    ("tid", "tnear", "ovf"), got, lists))
             res["walk_pairs"]["variants"] = variant_timing(
-                lambda lib: [walk(p, lib=lib) for p in passes],
+                lambda lib: [walk(p, b, lib=lib)
+                             for p, b in zip(passes, scratch)],
                 tr.get_lib(), variants, lambda name, got: [check_bits(
                     f"{tag}/{mode}/walk_pairs variant {name} pass {i}",
-                    trav.PairRecords._fields, a, b)
-                    for i, (a, b) in enumerate(zip(got, shipped[1]))])
+                    trav.RayBest._fields, a, p["after"])
+                    for i, (a, p) in enumerate(zip(got, passes))],
+                check_run=lambda lib: [walk(p, clone_best(p["before"]),
+                                            lib=lib) for p in passes])
         res["traverse_treelets_fallback"] = fallback_timing(
             tables, o2, d2, fb_tmax, any_hit, var_libs.get("traverse_treelets"))
         res["driver_ms"] = time_ms(lambda: tr.intersect_requeue(

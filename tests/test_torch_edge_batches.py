@@ -1,5 +1,5 @@
-"""tpupt_torch's kd/BSP (K2) and two-level (K3) traversal wrappers on the
-batch shapes a launch must also get right: one ray, every lane dead, and
+"""tpupt_torch's wide-BVH (K1), kd/BSP (K2) and two-level (K3) traversal
+wrappers on the batch shapes a launch must also get right: one ray, every lane dead, and
 odd sizes with 10 % and with 98 % of the lanes dead (the shape in which the
 re-queue driver calls K3 for the rays whose treelet list overflowed).
 
@@ -20,9 +20,10 @@ import torch
 
 from tpupt_torch.accel import kdbsp
 from tpupt_torch.accel import traverse as trav
-from tpupt_torch.ops import traverse_kdbsp, traverse_treelets
+from tpupt_torch.ops import traverse_kdbsp, traverse_treelets, traverse_wide
 from tpupt_torch.ops.traverse_kdbsp import intersect_kdbsp_cuda
 from tpupt_torch.ops.traverse_treelets import intersect_treelets_cuda
+from tpupt_torch.ops.traverse_wide import intersect_wide_cuda
 from tpupt_torch.scene.device import upload, with_alt_accel
 from tpupt_torch.scene.flatten import flatten
 from tpupt_torch.scene.loader import parse_string
@@ -39,6 +40,12 @@ COUNTERS = ("node_visits", "leaf_visits", "prim_tests")
 # (rays, dead share): the rays are the first n of the full batch
 BATCHES = {"one_ray": (1, 0.0), "all_dead": (67, 1.0),
            "odd_10pct_dead": (1001, 0.1), "odd_98pct_dead": (999, 0.98)}
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_tables():
+    sc = flatten(parse_string(testscenes.accelerator_scene_pbrt()))
+    return upload(sc, device="cpu")
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,6 +68,9 @@ def _two_level_tables():
 
 
 def _tables(kind):
+    if kind == "wide":
+        return (_wide_tables(), intersect_wide_cuda, trav.intersect_wide,
+                traverse_wide)
     if kind == "two_level":
         return (_two_level_tables(), intersect_treelets_cuda,
                 trav.intersect_two_level, traverse_treelets)
@@ -110,7 +120,7 @@ def _check_edge_batch(out, ref, idx, dead):
 
 
 @pytest.mark.parametrize("batch", list(BATCHES))
-@pytest.mark.parametrize("kind", ["kdtree", "rbsp3", "two_level"])
+@pytest.mark.parametrize("kind", ["wide", "kdtree", "rbsp3", "two_level"])
 def test_edge_batch_equals_the_full_batch_ray_by_ray(kind, batch):
     (ds, st), wrapper, plain, mod = _tables(kind)
     o, d, tmax = _full_batch(ds, 11)
@@ -130,7 +140,7 @@ def test_edge_batch_equals_the_full_batch_ray_by_ray(kind, batch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["kdtree", "rbsp3", "two_level"])
+@pytest.mark.parametrize("kind", ["wide", "kdtree", "rbsp3", "two_level"])
 def test_kernels_on_edge_batches_on_card(kind):
     """Needs a CUDA device and nvcc; `python3 chip_smoke.py` runs the same
     comparison at full size."""
@@ -155,5 +165,7 @@ def test_kernels_on_edge_batches_on_card(kind):
             for name in COUNTERS:
                 assert torch.equal(getattr(got[1], name),
                                    getattr(want[1], name)), name
-    if kind != "two_level":
+    if kind == "wide":
+        traverse_wide.check_stack_depth()
+    elif kind != "two_level":
         traverse_kdbsp.check_stack_depth()

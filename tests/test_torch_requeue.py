@@ -32,6 +32,14 @@ run the kernels' plain versions. Tolerances, and why:
 - a render through the driver: film equal to the default render's pixel for
   pixel (the hits are the same); only the node-visit AOV differs (the
   re-queue walk counts no top-tree steps).
+- `walk_pairs`' contract, on the port alone (no JAX call): each ray's packed
+  word (bits of t) << 32 | slot takes the first of two pairs with equal t
+  and, from a later pass, only a strictly smaller t; a ray without pairs
+  keeps tmax (inf included) and no slot; the rank mask picks the records a
+  stable sort by entry t puts first, ties and empty records included; the
+  counters a pass adds to a ray equal the sums over its pairs walked one by
+  one; a live count larger than the pairs walks the pairs there are, and a
+  used work counter walks nothing. All exact.
 """
 
 import dataclasses
@@ -304,12 +312,182 @@ def test_wrappers_refuse_single_level_tables_and_bad_inputs(scene):
     with pytest.raises(TypeError):
         bin_rays_cuda(ds, st, to.double(), td, tt)
     key = torch.zeros(4, dtype=torch.int32)
+    work = torch.zeros(2, dtype=torch.int32)
+    best = trav.new_ray_best(tt, 8)
     with pytest.raises(TypeError, match="key"):
-        walk_pairs_cuda(ds, st, to, td, key.long(), key, tt)
+        walk_pairs_cuda(ds, st, to, td, key.long(), key, work, tt, best)
     with pytest.raises(ValueError, match="ray"):
-        walk_pairs_cuda(ds, st, to, td, key, key[:3], tt)
+        walk_pairs_cuda(ds, st, to, td, key, key[:3], work, tt, best)
+    with pytest.raises(ValueError, match="work"):
+        walk_pairs_cuda(ds, st, to, td, key, key, work[:1], tt, best)
+    with pytest.raises(TypeError, match="best.word"):
+        walk_pairs_cuda(ds, st, to, td, key, key, work, tt,
+                        best._replace(word=best.word.int()))
+    with pytest.raises(ValueError, match="slots"):
+        walk_pairs_cuda(ds, st, to, td, key, key, work, tt, best,
+                        slot_base=5)
     with pytest.raises(ValueError, match="wave0"):
         intersect_requeue(ds, st, to, td, tt, wave0=0)
+
+
+# ------------------------ (e) the packed-word contract of walk_pairs --------
+
+
+def _one_pass(ds, st, o, d, key, ray, t_in, best, slot_base, n_live=None,
+              any_hit=False):
+    """`walk_pairs` over these (live) pairs, given a live count of
+    `n_live` (default: the number of pairs)."""
+    n = key.shape[0] if n_live is None else n_live
+    work = torch.tensor([n, 0], dtype=torch.int32, device=key.device)
+    return walk_pairs_cuda(ds, st, o, d, key.int(), ray.int(), work, t_in,
+                           best, slot_base, any_hit=any_hit)
+
+
+def _ray_with_two_hits(ds, st, o, d, tmax):
+    """(ray, [(t, key), ...] nearest first) of the first ray that hits in two
+    of its listed treelets at different t, each pair walked alone."""
+    tid, _, _ = bin_rays_cuda(ds, st, o, d, tmax)
+    for r in range(tid.shape[0]):
+        hits = []
+        for k in (tid[r][tid[r] >= 0] * 8).tolist():
+            best = trav.new_ray_best(tmax, 1)
+            _one_pass(ds, st, o, d, torch.tensor([k]), torch.tensor([r]),
+                      tmax, best, 0)
+            t, has = trav.best_t(best)
+            if bool(has[r]):
+                hits.append((float(t[r]), k))
+        if len({t for t, _ in hits}) >= 2:
+            return r, sorted(hits)
+    raise AssertionError("no ray hits two treelets")
+
+
+def test_the_packed_word_picks_the_first_pair_on_equal_t_and_a_later_pass_only_on_a_smaller_t(scene):
+    """One ray, pairs given by hand: the same pair twice in one pass (equal
+    t) keeps the first slot; a later pass with larger slots replaces a hit
+    only with a strictly smaller t, whatever t it starts from; a ray with
+    no pairs, and a ray with tmax inf and no hit, keep tmax and no slot."""
+    _, _, (ds, st), o, d = scene
+    to, td = _torch(o[:48], d[:48])
+    tmax = torch.full((48,), float("inf"))
+    r, pairs = _ray_with_two_hits(ds, st, to, td, tmax)
+    (t_near, k_near), (t_far, k_far) = pairs[0], pairs[-1]
+    ray2 = torch.tensor([r, r])
+
+    # equal t in one pass: the first pair in sorted order
+    best = trav.new_ray_best(tmax, 16)
+    _one_pass(ds, st, to, td, torch.tensor([k_far, k_far]), ray2, tmax,
+              best, 4)
+    assert int(best.word[r]) & trav.NO_SLOT == 4
+    assert float(trav.best_t(best)[0][r]) == t_far
+
+    # a later pass from tmax: an equal t keeps the earlier slot ...
+    _one_pass(ds, st, to, td, torch.tensor([k_far]), ray2[:1], tmax, best, 8)
+    assert int(best.word[r]) & trav.NO_SLOT == 4
+    # ... a smaller t replaces it ...
+    _one_pass(ds, st, to, td, torch.tensor([k_near]), ray2[:1], tmax, best, 9)
+    assert int(best.word[r]) & trav.NO_SLOT == 9
+    assert float(trav.best_t(best)[0][r]) == t_near
+    # ... and a larger t does not
+    _one_pass(ds, st, to, td, torch.tensor([k_far]), ray2[:1], tmax, best, 10)
+    assert int(best.word[r]) & trav.NO_SLOT == 9
+    t_b, gid, ridx, b1, b2 = trav.best_hit(best)
+    assert float(t_b[r]) == t_near and int(gid[r]) >= 0
+
+    # rays with no pair: tmax inf and no slot, the default record
+    others = torch.ones(48, dtype=torch.bool)
+    others[r] = False
+    assert (best.word[others] == ((0x7F800000 << 32) | trav.NO_SLOT)).all()
+    t_b, gid, ridx, b1, b2 = trav.best_hit(best)
+    assert torch.isinf(t_b[others]).all() and (gid[others] == -1).all()
+    assert not ridx[others].any() and not b1[others].any()
+    assert not b2[others].any()
+    # a finite tmax is kept to the bit
+    cut = torch.full((48,), 2.5)
+    assert torch.equal(trav.best_t(trav.new_ray_best(cut, 1))[0], cut)
+
+
+def test_first_wave_equals_the_stable_sort_selection():
+    """The rank mask against the places a stable sort by entry t gives, on
+    lists with tied entry t, zero entries and empty records (3e38)."""
+    gen = np.random.default_rng(5)
+    n, r_list = 400, 16
+    tnear = gen.choice([0.0, 0.5, 1.0, 1.5, 2.0], (n, r_list)).astype(np.float32)
+    tnear[gen.random((n, r_list)) < 0.3] = 3.0e38
+    tnear[::7] = 3.0e38           # whole lists empty
+    tnear[1::7] = 1.0             # whole lists tied
+    tn = torch.from_numpy(tnear)
+    place = torch.argsort(torch.argsort(tn, dim=1, stable=True), dim=1)
+    for wave0 in (1, 2, 3, r_list):
+        assert torch.equal(traverse_requeue.first_wave(tn, wave0),
+                           place < wave0), wave0
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_counters_are_the_sums_of_the_pairs_walks(scene, any_hit):
+    """Each pass of the driver: the counters `walk_pairs` adds to a ray equal
+    the sum over its pairs of each pair walked as a ray of its own."""
+    _, _, (ds, st), o, d = scene
+    to, td, tt = _torch(o, d, np.full(N_RAYS, np.inf, np.float32))
+    checked = []
+
+    def walk(ds, st, o, d, key, ray, work, t_in, best, slot_base,
+             any_hit, with_stats):
+        before = [c.clone() for c in best[2:]]
+        m = int(work[0])
+        walk_pairs_cuda(ds, st, o, d, key, ray, work, t_in, best,
+                        slot_base, any_hit=any_hit, with_stats=with_stats)
+        r = ray[:m].long()
+        alone = trav.new_ray_best(t_in[r].contiguous(), m)
+        _one_pass(ds, st, o[r].contiguous(), d[r].contiguous(),
+                  key[:m].contiguous(), torch.arange(m), t_in[r].contiguous(),
+                  alone, 0, any_hit=any_hit)
+        for b, a, c in zip(before, alone[2:], best[2:]):
+            assert torch.equal(c, b.index_add(0, r, a))
+        checked.append(m)
+        return best
+
+    traverse_requeue._requeue(trav.bin_rays, walk, trav.intersect_two_level,
+                              ds, st, to, td, tt, any_hit=any_hit)
+    assert len(checked) == 2 and checked[0] > 20
+
+
+@pytest.mark.parametrize(
+    "device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_a_live_count_past_the_pairs_walks_only_the_pairs(scene, device):
+    """A live count larger than the P pairs given walks the P pairs, as a
+    count of P does, into a payload of exactly P slots (the kernel must
+    read no key or ray past P and write no slot past it); the used work
+    tensor then walks nothing more."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _, _, (ds, st), o, d = scene
+    dev = torch.device(device)
+    ds = type(ds)(*[t.to(dev) for t in ds])
+    to, td = [t.to(dev) for t in _torch(o[:64], d[:64])]
+    tmax = torch.full((64,), float("inf"), device=dev)
+    tid, _, _ = bin_rays_cuda(ds, st, to, td, tmax)
+    live = tid >= 0
+    key = (tid * 8)[live].contiguous()
+    ray = torch.nonzero(live)[:, 0].to(torch.int32).contiguous()
+    p = key.shape[0]
+
+    def fresh():
+        best = trav.new_ray_best(tmax, p)
+        best.payload.zero_()
+        return best
+
+    want = _one_pass(ds, st, to, td, key, ray, tmax, fresh(), 0)
+    got = fresh()
+    work = torch.tensor([p + 1000, 0], dtype=torch.int32, device=dev)
+    walk_pairs_cuda(ds, st, to, td, key, ray, work, tmax, got)
+    assert bool(trav.best_t(want)[1].any())
+    for f, a, b in zip(trav.RayBest._fields, got, want):
+        assert torch.equal(a, b), f
+    assert int(work[1]) >= p
+    again = trav.RayBest(*[x.clone() for x in got])
+    walk_pairs_cuda(ds, st, to, td, key, ray, work, tmax, again)
+    for f, a, b in zip(trav.RayBest._fields, again, got):
+        assert torch.equal(a, b), f
 
 
 @pytest.mark.gpu
@@ -334,9 +512,14 @@ def test_kernels_equal_their_plain_versions_on_card(scene):
     def bin_fn(*args):
         return same(bin_rays_cuda(*args), trav.bin_rays(*args))
 
-    def walk(*args, any_hit):
-        return same(walk_pairs_cuda(*args, any_hit=any_hit),
-                    trav.walk_pairs(*args, any_hit=any_hit))
+    def walk(ds, st, o, d, key, ray, work, t_in, best, slot_base,
+             any_hit, with_stats):
+        plain = trav.RayBest(*[x.clone() for x in best])
+        trav.walk_pairs(ds, st, o, d, key, ray, work.clone(), t_in, plain,
+                        slot_base, any_hit=any_hit, with_stats=with_stats)
+        return same(walk_pairs_cuda(ds, st, o, d, key, ray, work, t_in,
+                                    best, slot_base, any_hit=any_hit,
+                                    with_stats=with_stats), plain)
 
     out = traverse_requeue._requeue(bin_fn, walk, trav.intersect_two_level,
                                     ds, st, to, td, tt)

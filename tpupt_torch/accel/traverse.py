@@ -398,93 +398,144 @@ def bin_rays(ds: DeviceScene, st: SceneStatics, o, d, tmax,
     return tid[:, :r_list].contiguous(), tnear[:, :r_list].contiguous(), ovf
 
 
-class PairRecords(NamedTuple):
-    """What the walk of each (ray, treelet) pair found, one entry a pair."""
+NO_SLOT = 0xFFFFFFFF   # payload slot of a ray that has no hit yet
 
-    t: torch.Tensor            # (P,) f32 best t (the ray's start t if no hit)
-    gid: torch.Tensor          # (P,) i32 global prim id, -1 = no hit
-    ridx: torch.Tensor         # (P,) i32 winning row of tl_prims
-    b1: torch.Tensor           # (P,) f32
-    b2: torch.Tensor           # (P,) f32
-    node_visits: torch.Tensor  # (P,) i32
-    leaf_visits: torch.Tensor  # (P,) i32
-    prim_tests: torch.Tensor   # (P,) i32
+
+class RayBest(NamedTuple):
+    """Each ray's best hit so far in the re-queue traversal, as kernel
+    `walk_pairs` keeps it: one word, (bits of t) << 32 | payload slot, which
+    orders like (t, slot) because a hit's t and tmax are positive; the
+    payload of every pair that hit, at the pair's slot; and the counters of
+    the pairs each ray walked, summed."""
+
+    word: torch.Tensor         # (N,) i64; slot NO_SLOT: no hit, t = tmax
+    payload: torch.Tensor      # (S, 4) i32: gid, row of tl_prims, b1, b2 bits
+    node_visits: torch.Tensor  # (N,) i32
+    leaf_visits: torch.Tensor  # (N,) i32
+    prim_tests: torch.Tensor   # (N,) i32
+
+
+def new_ray_best(tmax, n_slots: int) -> RayBest:
+    """No hit yet for any ray: t = tmax, slot NO_SLOT, zero counters, room
+    for `n_slots` payloads (not initialised: only a winner's is read)."""
+    n, dev = tmax.shape[0], tmax.device
+    bits = tmax.contiguous().view(torch.int32).to(torch.int64)
+    word = (bits << 32) | NO_SLOT
+    counters = torch.zeros((3, n), dtype=torch.int32, device=dev)
+    return RayBest(word, torch.empty((n_slots, 4), dtype=torch.int32,
+                                     device=dev), *counters)
+
+
+def best_t(best: RayBest):
+    """(t (N,) f32, has a hit (N,) bool) of each ray's word."""
+    t = (best.word >> 32).to(torch.int32).view(torch.float32)
+    return t, (best.word & NO_SLOT) != NO_SLOT
+
+
+def best_hit(best: RayBest):
+    """(t, gid, ridx, b1, b2) of each ray's best hit; a ray without one keeps
+    its tmax, gid -1, row 0 and zero barycentrics."""
+    t, has = best_t(best)
+    slot = torch.where(has, best.word & NO_SLOT, 0)
+    none = torch.tensor([-1, 0, 0, 0], dtype=torch.int32, device=t.device)
+    pay = torch.where(has[:, None], best.payload[slot], none)
+    b = pay[:, 2:].contiguous().view(torch.float32)
+    return (t, pay[:, 0].contiguous(), pay[:, 1].contiguous(),
+            b[:, 0].contiguous(), b[:, 1].contiguous())
+
+
+def pair_work(live):
+    """(2,) i32 on `live`'s device: the number of true entries of `live`
+    (the live pairs of a pass) and 0, the work counter of one `walk_pairs`
+    call."""
+    work = torch.zeros(2, dtype=torch.int32, device=live.device)
+    torch.sum(live.reshape(1, -1), 1, dtype=torch.int32, out=work[:1])
+    return work
 
 
 @torch.no_grad()
-def walk_pairs(ds: DeviceScene, st: SceneStatics, o, d, key, ray, t_in,
-               any_hit: bool = False, touched=None) -> PairRecords:
+def walk_pairs(ds: DeviceScene, st: SceneStatics, o, d, key, ray, work,
+               t_in, best: RayBest, slot_base: int = 0, any_hit: bool = False,
+               with_stats: bool = True, touched=None) -> RayBest:
     """One pass of the re-queue traversal over (ray, treelet) pairs: the
     plain PyTorch version of the CUDA kernel `walk_pairs`
-    (csrc/traverse_requeue.cu).
+    (csrc/traverse_requeue.cu). Updates `best` in place and returns it.
 
-    `key` (P,) i32 holds the pair keys treelet * 8 + octant, or
-    `pair_sentinel(st)` for a pair with no work, `ray` (P,) i32 each pair's
-    ray, `t_in` (N,) f32 each ray's best t when the pass starts. A live
-    pair walks its treelet as
-    `intersect_two_level` walks a treelet it enters: from the local root, on
-    a stack of its own, with `_interior_step` / `_leaf_step` and its ray's
-    `t_in` as the current t; with any_hit it stops at its first hit. A pair
-    with no work keeps t_in, gid -1 and zero counters. `touched` = (treelet
-    node mask, prim mask, treelet mask), when given, is filled in."""
+    `key` (P,) i32 holds the pair keys treelet * 8 + octant, the work[0]
+    live pairs first, `ray` (P,) i32 each pair's ray, `t_in` (N,) f32 each
+    ray's best t when the pass starts. The pairs from work[1] (0, see
+    `pair_work`) up to work[0], at most P, are walked, and work[1] is set to
+    the end, as the kernel's work counter ends there or past it. A live pair
+    walks its treelet as `intersect_two_level` walks a treelet it enters:
+    from the local root, on a stack of its own, with `_interior_step` /
+    `_leaf_step` and its ray's `t_in` as the current t; with any_hit it
+    stops at its first hit. A pair that hits takes the minimum of its ray's
+    word and
+    (bits of its t) << 32 | its slot, slot_base + its index, and writes its
+    (gid, row, b1, b2) at that slot; with_stats adds its counters to its
+    ray's. `touched` = (treelet node mask, prim mask, treelet mask), when
+    given, is filled in."""
     if not st.two_level:
         raise ValueError("the scene was uploaded without two-level tables")
-    p = key.shape[0]
     dev = o.device
     i32 = torch.int32
-    ray = ray.long()
-    t_out = t_in.to(torch.float32)[ray]
-    gid = torch.full((p,), -1, dtype=i32, device=dev)
-    ridx = torch.zeros(p, dtype=i32, device=dev)
-    b1 = torch.zeros(p, device=dev)
-    b2 = torch.zeros(p, device=dev)
-    counts = [torch.zeros(p, dtype=i32, device=dev) for _ in range(3)]
-    live = torch.nonzero(key < pair_sentinel(st))[:, 0]
-    m = live.shape[0]
-    if m:
-        r = ray[live]
-        o_, d_ = o[r], d[r]
-        perm = ray_permutation(d_)
-        inv_d = ray_inv_d(d_)
-        tl_meta = ds.tl_nodes[:, 48:56].view(i32)
-        prim_ints = ds.tl_prims[:, 16:18].view(i32)
-        tid = (key[live] >> 3).long()
-        off = ds.tl_offsets.long()[tid]
+    start = max(int(work[1]), 0)
+    end = min(int(work[0]), key.shape[0])
+    if end <= start:
+        return best
+    work[1] = end
+    m = end - start
+    r = ray[start:end].long()
+    o_, d_ = o[r], d[r]
+    perm = ray_permutation(d_)
+    inv_d = ray_inv_d(d_)
+    tl_meta = ds.tl_nodes[:, 48:56].view(i32)
+    prim_ints = ds.tl_prims[:, 16:18].view(i32)
+    tid = (key[start:end] >> 3).long()
+    off = ds.tl_offsets.long()[tid]
+    if touched is not None:
+        touched[2][tid] = True
+    stack = torch.zeros((m, WIDE_STACK + 1), dtype=i32, device=dev)
+    sp = torch.ones(m, dtype=i32, device=dev)   # entry 0 = local root
+    rec = [t_in.to(torch.float32)[r],
+           torch.full((m,), -1, dtype=i32, device=dev),
+           torch.zeros(m, dtype=torch.int64, device=dev),
+           torch.zeros(m, device=dev), torch.zeros(m, device=dev),
+           torch.zeros(m, dtype=i32, device=dev)]
+    nodes = torch.zeros(m, dtype=i32, device=dev)
+    leaves = torch.zeros(m, dtype=i32, device=dev)
+    while _deepest(sp) > 0:
+        active = sp > 0
+        top = (sp - 1).clamp_min(0).long()
+        raw = stack.gather(1, top[:, None])[:, 0]
+        sp = torch.where(active, sp - 1, sp)
+        is_node = active & (raw >= 0)
+        is_leaf = active & (raw < 0)
+        nid = torch.where(is_node, off[:, 0] + raw, 0)
         if touched is not None:
-            touched[2][tid] = True
-        stack = torch.zeros((m, WIDE_STACK + 1), dtype=i32, device=dev)
-        sp = torch.ones(m, dtype=i32, device=dev)   # entry 0 = local root
-        rec = [t_out[live], torch.full((m,), -1, dtype=i32, device=dev),
-               torch.zeros(m, dtype=torch.int64, device=dev),
-               torch.zeros(m, device=dev), torch.zeros(m, device=dev),
-               torch.zeros(m, dtype=i32, device=dev)]
-        nodes = torch.zeros(m, dtype=i32, device=dev)
-        leaves = torch.zeros(m, dtype=i32, device=dev)
-        while _deepest(sp) > 0:
-            active = sp > 0
-            top = (sp - 1).clamp_min(0).long()
-            raw = stack.gather(1, top[:, None])[:, 0]
-            sp = torch.where(active, sp - 1, sp)
-            is_node = active & (raw >= 0)
-            is_leaf = active & (raw < 0)
-            nid = torch.where(is_node, off[:, 0] + raw, 0)
-            if touched is not None:
-                touched[0][nid[is_node]] = True
-            sp = _interior_step(ds.tl_nodes[nid], tl_meta[nid], is_node, o_,
-                                inv_d, rec[0], stack, sp)
-            nodes = nodes + is_node.to(i32)
-            leaves = leaves + is_leaf.to(i32)
-            v = torch.where(is_leaf, -raw - 1, 0)
-            rec = _leaf_step(ds.tl_prims, prim_ints, st, is_leaf,
-                             off[:, 1] + (v >> 6), v & 63, o_, d_, perm, rec,
-                             None if touched is None else touched[1])
-            if any_hit:
-                sp = torch.where(rec[1] >= 0, 0, sp)
-        t_out[live], gid[live], ridx[live] = rec[0], rec[1], rec[2].to(i32)
-        b1[live], b2[live] = rec[3], rec[4]
-        for full, part in zip(counts, (nodes, leaves, rec[5])):
-            full[live] = part
-    return PairRecords(t_out, gid, ridx, b1, b2, *counts)
+            touched[0][nid[is_node]] = True
+        sp = _interior_step(ds.tl_nodes[nid], tl_meta[nid], is_node, o_,
+                            inv_d, rec[0], stack, sp)
+        nodes = nodes + is_node.to(i32)
+        leaves = leaves + is_leaf.to(i32)
+        v = torch.where(is_leaf, -raw - 1, 0)
+        rec = _leaf_step(ds.tl_prims, prim_ints, st, is_leaf,
+                         off[:, 1] + (v >> 6), v & 63, o_, d_, perm, rec,
+                         None if touched is None else touched[1])
+        if any_hit:
+            sp = torch.where(rec[1] >= 0, 0, sp)
+    t, gid = rec[0].contiguous(), rec[1]
+    hit = gid >= 0
+    slot = slot_base + torch.arange(start, end, device=dev)
+    words = (t.view(i32).to(torch.int64) << 32) | slot
+    best.word.scatter_reduce_(0, r[hit], words[hit], "amin")
+    pay = torch.stack([gid, rec[2].to(i32), rec[3].contiguous().view(i32),
+                       rec[4].contiguous().view(i32)], 1)
+    best.payload[slot[hit]] = pay[hit]
+    if with_stats:
+        for acc, c in zip(best[2:], (nodes, leaves, rec[5])):
+            acc.index_add_(0, r, c)
+    return best
 
 
 def quadric_hit_point(prim_rows, st, o, d, t, ridx):

@@ -22,26 +22,47 @@
 // of (ray, treelet) pairs sorted by (treelet, direction octant), at most 16
 // treelets a chunk, copies each treelet's padded node and prim blocks into
 // on-chip memory and walks the block for the whole chunk with any-lane
-// voting, parking the lanes of other treelets. Here ONE THREAD WALKS ONE
-// PAIR: it reads its ray by ray id (no gathered copies of the ray fields),
-// reads the treelet's first node row and prim row (one int2 of
+// voting, parking the lanes of other treelets. Here ONE LANE WALKS ONE
+// PAIR AT A TIME: it reads its ray by ray id (no gathered copies of the ray
+// fields), reads the treelet's first node row and prim row (one int2 of
 // `tl_offsets`) and walks the treelet from its local root, starting from the
-// pass's best t of its ray, with the node step and leaf step of
-// traverse_treelets.cu. The pairs are sorted by treelet, so the threads of a
-// warp walk the same treelet: that is the Hopper form of the TPU's
+// ray's best t when the pass began (`t_in`), with the node step and leaf
+// step of traverse_common.cuh. The pairs are sorted by treelet, so the lanes
+// of a warp walk the same treelet: that is the Hopper form of the TPU's
 // same-treelet chunk, the treelet's rows are read by a warp together and
-// stay in L1/L2. One thread a pair defers nothing, so the TPU's third pass
-// (for pairs a chunk could not take) has no counterpart. Threads whose pair
-// has no work (sentinel key) write the pair's empty record and leave.
+// stay in L1/L2. A lane a pair defers nothing, so the TPU's third pass (for
+// pairs a chunk could not take) has no counterpart.
+//
+// Only live pairs are walked: the driver's pair sort puts them first and
+// counts them on the card (`work`, two ints: the live count, which the
+// kernel caps at the number of pairs, and a zero it counts the pairs it
+// hands out in); a dead slot costs nothing. The winner is chosen here, not by the driver: each ray
+// keeps one 64-bit word, (bits of t) << 32 | payload slot, which orders like
+// (t, slot) because a hit's t and tmax are positive; a pair that hits does
+// one 64-bit atomicMin on its ray's word and writes its (gid, row, b1, b2)
+// at its slot, pass * P + its sorted index. So a ray takes the smallest t,
+// among equal t the first pair in sorted order, and a later pass (larger
+// slots) replaces a hit only with a smaller t. t is never read back from the
+// word during a pass: every pair starts from `t_in`, so the culling and the
+// counters do not depend on the order in which the pairs run. The node, leaf
+// and prim-test counts of each pair are added into its ray's counters with
+// atomicAdd (integer sums: any order gives the same bits).
+//
+// The grid, no larger than the card holds at once, is persistent warps
+// that take pairs from the work counter in sorted order, a lane a pair, as
+// their lanes finish (Aila and Laine's dynamic fetch): on an H100 5-7 %
+// faster than a fixed stride over the pairs. Copying the first node rows of
+// a block's treelet into shared memory was 6-22 % slower and is not kept: a
+// whole treelet (up to 512 x 256 B of nodes plus 4096 x 128 B of prims)
+// does not fit a block's 227 KB, and few blocks of 128 sorted pairs share
+// one treelet (PERF.md).
 //
 // What bounds them: bin_rays reads a few hundred top rows that every ray
 // shares (they stay in L1/L2) and writes 8 bytes a record, uncoalesced (one
 // row of `r_list` records a thread); walk_pairs is bound like
 // traverse_treelets.cu by dependent, random 256-byte node-row and 128-byte
 // prim-row gathers, latency and divergence, with the byte and operation
-// bounds far below the measured time. Staging a treelet in shared memory for
-// the warps that walk it is left for later work: a treelet is up to 512 x
-// 256 B of nodes plus 4096 x 128 B of prims, larger than a block's 227 KB.
+// bounds far below the measured time.
 //
 // Semantics are those of the plain PyTorch versions
 // tpupt_torch/accel/traverse.py `bin_rays` and `walk_pairs`, operation for
@@ -127,51 +148,168 @@ bin_rays_kernel(const float4* __restrict__ top_nodes,
   ovf_out[i] = max(cnt - r_list, 0);
 }
 
+struct PairArgs {
+  const float4* __restrict__ tl_nodes;
+  const float4* __restrict__ tl_prims;
+  int n_rows;
+  const int2* __restrict__ tl_offsets;
+  const float* __restrict__ o;
+  const float* __restrict__ d;
+  const int* __restrict__ key;
+  const int* __restrict__ ray;
+  int p;      // pairs in key / ray
+  int* work;  // [live pairs, next pair to hand out]
+  const float* __restrict__ t_in;
+  unsigned slot_base;
+  unsigned long long* __restrict__ word;
+  int4* __restrict__ payload;
+  int* __restrict__ nodes_acc;
+  int* __restrict__ leaves_acc;
+  int* __restrict__ tests_acc;
+  int* __restrict__ deepest;
+};
+
+// One lane's current pair: its walk through its treelet, one step at a time
+// in the order of traverse_treelets.cu's loop, on the caller's stack of
+// WIDE_STACK ints (a struct that held the array would be kept in local
+// memory whole, with the ray and the hit beside it), and its share of its
+// ray's result.
+template <bool ANY_HIT, bool HAS_SPHERES, bool WITH_STATS>
+struct PairWalk {
+  const PairArgs& a;
+  int* stack;
+  RayConst r;
+  HitRec h;
+  int i, ri, sp, sp_max, prim_base;
+  const float4* nodes;
+
+  __device__ PairWalk(const PairArgs& args, int* local)
+      : a(args), stack(local) {}
+
+  // pair i, from its ray's t when the pass began, at its treelet's root
+  __device__ __forceinline__ void begin(int item) {
+    i = item;
+    int k = a.key[i];
+    ri = a.ray[i];
+    h = {a.t_in[ri], -1, 0, 0.0f, 0.0f, 0, 0, 0};
+    ray_setup(a.o, a.d, ri, r);
+    int2 off = __ldg(a.tl_offsets + (k >> 3));
+    nodes = a.tl_nodes + (size_t)off.x * 16;
+    prim_base = off.y;
+    sp = 1;
+    sp_max = 1;
+    stack[0] = 0;  // the treelet's local root
+  }
+  __device__ __forceinline__ bool done() const {
+    return sp == 0 || (ANY_HIT && h.gid >= 0);
+  }
+  __device__ __forceinline__ void step() {
+    int raw = stack[--sp];
+    if (raw >= 0) {
+      if (WITH_STATS) h.n_nodes++;
+      node_step(nodes + (size_t)raw * 16, r, h.t, stack, sp, sp_max);
+    } else {
+      if (WITH_STATS) h.n_leaves++;
+      int v = -raw - 1;
+      leaf_step<HAS_SPHERES, WITH_STATS>(a.tl_prims, a.n_rows,
+                                         prim_base + (v >> 6), v & 63, r, h);
+    }
+  }
+  __device__ __forceinline__ void finish() {
+    if (sp_max > WIDE_STACK) atomicMax(a.deepest, sp_max);
+    if (h.gid >= 0) {
+      unsigned slot = a.slot_base + (unsigned)i;
+      atomicMin(a.word + ri,
+                ((unsigned long long)__float_as_uint(h.t) << 32) | slot);
+      a.payload[slot] = make_int4(h.gid, h.ridx, __float_as_int(h.b1),
+                                  __float_as_int(h.b2));
+    }
+    if (WITH_STATS) {
+      atomicAdd(a.nodes_acc + ri, h.n_nodes);
+      atomicAdd(a.leaves_acc + ri, h.n_leaves);
+      atomicAdd(a.tests_acc + ri, h.n_tests);
+    }
+  }
+};
+
+#define FULL_WARP 0xffffffffu
+#define MIN_ASK 8  // free lanes a warp waits for before it takes more pairs
+
+// The work counter of a warp's lanes (Aila and Laine, "Understanding the
+// efficiency of ray traversal on GPUs", HPG 2009): the lanes that want an
+// item are counted with one vote, and when there are at least MIN_ASK of
+// them one lane takes that many indices with a single atomicAdd and hands
+// them out by shuffle. `drained`, the same in every lane, is set once the
+// counter has passed `count`.
+struct WarpQueue {
+  int* counter;
+  int count;
+  bool drained;
+
+  // the lane's new item, or -1; every lane of the warp calls it
+  __device__ __forceinline__ int take(bool want) {
+    unsigned ask = __ballot_sync(FULL_WARP, want);
+    int n_ask = __popc(ask);
+    if (drained || n_ask < MIN_ASK) return -1;
+    int lane = threadIdx.x & 31;
+    int leader = __ffs(ask) - 1;
+    int base = 0;
+    if (lane == leader) base = atomicAdd(counter, n_ask);
+    base = __shfl_sync(FULL_WARP, base, leader);
+    if (base + n_ask >= count) drained = true;
+    if (!want) return -1;
+    int item = base + __popc(ask & ((1u << lane) - 1u));
+    return item < count ? item : -1;
+  }
+};
+
+// Persistent warps: each lane walks one pair at a time and takes the next
+// from the work counter, in sorted order, when enough lanes of its warp are
+// free. A warp leaves when, right after a take, none of its lanes has a
+// pair: every lane then asked, so the counter has passed the live count
+// (never more than the pairs there are). Each turn before that steps at
+// least one walk, so the loop ends.
 template <bool ANY_HIT, bool HAS_SPHERES, bool WITH_STATS>
 __global__ void __launch_bounds__(128)
-walk_pairs_kernel(const float4* __restrict__ tl_nodes,
-                  const float4* __restrict__ tl_prims, int n_rows,
-                  const int2* __restrict__ tl_offsets,
-                  const float* __restrict__ o, const float* __restrict__ d,
-                  const int* __restrict__ key, const int* __restrict__ ray,
-                  const float* __restrict__ t_in, int p, int sentinel,
-                  float* __restrict__ t_out, float* __restrict__ b1_out,
-                  float* __restrict__ b2_out, int* __restrict__ gid_out,
-                  int* __restrict__ ridx_out, int* __restrict__ nodes_out,
-                  int* __restrict__ leaves_out, int* __restrict__ tests_out,
-                  int* __restrict__ deepest) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p) return;
-  int k = key[i];
-  int ri = ray[i];
-  HitRec h = {t_in[ri], -1, 0, 0.0f, 0.0f, 0, 0, 0};
-
-  if (k < sentinel) {
-    RayConst r;
-    ray_setup(o, d, ri, r);
-    int2 off = __ldg(tl_offsets + (k >> 3));
-    const float4* nodes = tl_nodes + (size_t)off.x * 16;
-    int stack[WIDE_STACK];
-    int sp = 1;
-    int sp_max = 1;
-    stack[0] = 0;  // the treelet's local root
-    while (sp > 0) {
-      int raw = stack[--sp];
-      if (raw >= 0) {
-        if (WITH_STATS) h.n_nodes++;
-        node_step(nodes + (size_t)raw * 16, r, h.t, stack, sp, sp_max);
-      } else {
-        if (WITH_STATS) h.n_leaves++;
-        int v = -raw - 1;
-        leaf_step<HAS_SPHERES, WITH_STATS>(tl_prims, n_rows,
-                                           off.y + (v >> 6), v & 63, r, h);
-      }
-      if (ANY_HIT && h.gid >= 0) break;
+walk_pairs_kernel(const __grid_constant__ PairArgs a) {
+  int local[WIDE_STACK];
+  PairWalk<ANY_HIT, HAS_SPHERES, WITH_STATS> w(a, local);
+  WarpQueue q = {a.work + 1, min(a.work[0], a.p), false};
+  bool busy = false;
+  for (;;) {
+    int item = q.take(!busy);
+    if (item >= 0) {
+      w.begin(item);
+      busy = true;
     }
-    if (sp_max > WIDE_STACK) atomicMax(deepest, sp_max);
+    if (!__any_sync(FULL_WARP, busy)) break;
+    if (busy) {
+      w.step();
+      if (w.done()) {
+        w.finish();
+        busy = false;
+      }
+    }
   }
-  store_hit<WITH_STATS>(i, h, t_out, b1_out, b2_out, gid_out, ridx_out,
-                        nodes_out, leaves_out, tests_out);
+}
+
+// Blocks of `threads` threads of walk_pairs_kernel<A, H, W> that the
+// current card holds at once: the grid of a persistent launch, asked of the
+// runtime once per instance and card.
+template <bool A, bool H, bool W>
+int resident_blocks(int threads) {
+  constexpr int kMaxDevices = 64;
+  static int blocks[kMaxDevices];  // 0: not asked yet
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < kMaxDevices && blocks[dev] > 0) return blocks[dev];
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, walk_pairs_kernel<A, H, W>, threads, 0);
+  int n = (per_sm > 1 ? per_sm : 1) * (sms > 1 ? sms : 1);
+  if (dev < kMaxDevices) blocks[dev] = n;
+  return n;
 }
 
 }  // namespace
@@ -197,29 +335,37 @@ extern "C" int tpupt_bin_rays(const void* top_nodes, const void* o,
 
 // Launches on `stream`, does not synchronise, allocates nothing. tl_nodes
 // (Nt,64) f32, tl_prims (P,32) f32, tl_offsets (NT,2) i32, o/d (N,3) f32,
-// key/ray (Np,) i32, t_in (N,) f32; outputs (Np,). A pair whose key is not
-// below `sentinel` has no work. nodes/leaves/tests are written only with
-// with_stats. `ridx` is the winning row of tl_prims. Returns
-// cudaGetLastError().
+// key/ray (p,) i32 sorted with the live pairs first, work two i32 on the
+// card: the number of live pairs (pairs past p are not walked) and the
+// first pair to walk, 0, which the launch counts up as it hands pairs out
+// and leaves at or past the end, so a `work` serves one launch; t_in (N,)
+// f32; word (N,) u64, payload (S,4) i32 with S >= slot_base + p, and the
+// counters nodes/leaves/tests (N,) i32, which are added to only with
+// with_stats. `deepest` is as in tpupt_bin_rays. Returns the first CUDA
+// error.
 extern "C" int tpupt_walk_pairs(
     const void* tl_nodes, const void* tl_prims, int n_rows,
     const void* tl_offsets, const void* o, const void* d, const void* key,
-    const void* ray, const void* t_in, int p, int sentinel, void* t_out,
-    void* b1_out, void* b2_out, void* gid_out, void* ridx_out,
-    void* nodes_out, void* leaves_out, void* tests_out, void* deepest,
-    int any_hit, int has_spheres, int with_stats, void* stream) {
+    const void* ray, void* work, const void* t_in, int p,
+    int slot_base, void* word, void* payload, void* nodes_acc,
+    void* leaves_acc, void* tests_acc, void* deepest, int any_hit,
+    int has_spheres, int with_stats, void* stream) {
   if (p <= 0) return 0;
+  const PairArgs a = {
+      (const float4*)tl_nodes, (const float4*)tl_prims, n_rows,
+      (const int2*)tl_offsets, (const float*)o, (const float*)d,
+      (const int*)key, (const int*)ray, p, (int*)work, (const float*)t_in,
+      (unsigned)slot_base, (unsigned long long*)word, (int4*)payload,
+      (int*)nodes_acc, (int*)leaves_acc, (int*)tests_acc, (int*)deepest};
   const int threads = 128;
   const int blocks = (p + threads - 1) / threads;
   cudaStream_t s = (cudaStream_t)stream;
 #define LAUNCH(A, H, W)                                                       \
-  walk_pairs_kernel<A, H, W><<<blocks, threads, 0, s>>>(                      \
-      (const float4*)tl_nodes, (const float4*)tl_prims, n_rows,               \
-      (const int2*)tl_offsets, (const float*)o, (const float*)d,              \
-      (const int*)key, (const int*)ray, (const float*)t_in, p, sentinel,      \
-      (float*)t_out, (float*)b1_out, (float*)b2_out, (int*)gid_out,           \
-      (int*)ridx_out, (int*)nodes_out, (int*)leaves_out, (int*)tests_out,     \
-      (int*)deepest)
+  {                                                                           \
+    int cap = resident_blocks<A, H, W>(threads);                              \
+    walk_pairs_kernel<A, H, W>                                                \
+        <<<blocks < cap ? blocks : cap, threads, 0, s>>>(a);                  \
+  }
   int k = (any_hit ? 4 : 0) | (has_spheres ? 2 : 0) | (with_stats ? 1 : 0);
   switch (k) {
     case 0: LAUNCH(false, false, false); break;

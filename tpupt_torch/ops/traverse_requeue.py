@@ -7,22 +7,35 @@ JAX package's answer for incoherent bounce rays over large scenes
 
 1. `bin_rays_cuda` walks each ray through the top tree and lists up to
    `r_list` treelets it enters, with their entry t (kernel `bin_rays`);
-2. the driver sorts each list by entry t, builds a key treelet * 8 +
-   direction octant for each live (ray, treelet) pair and sorts the pairs
-   by it, so that neighbouring threads walk the same treelet;
-3. `walk_pairs_cuda` walks each pair, one thread a pair, from the ray's best
-   t when the pass starts (kernel `walk_pairs`); a ray takes the smallest t
-   of its pairs, among equal t the first pair in sorted order, and a later
-   pass replaces a hit only with a strictly smaller t. Pass 0 walks each
-   ray's nearest `wave0` treelets, pass 1 every other pair whose entry t is
-   below the ray's best t by then;
+2. the driver builds a key treelet * 8 + direction octant for each live
+   (ray, treelet) pair and sorts the pairs by it (stably, live pairs
+   first), so that neighbouring threads walk the same treelet, and counts
+   the live pairs on the card (`work`, the count and the kernel's zeroed
+   work counter);
+3. `walk_pairs_cuda` walks each live pair, one lane a pair (persistent
+   warps take the pairs in sorted order), from the ray's best t when the
+   pass starts (kernel `walk_pairs`), and picks each
+   ray's winner itself: one 64-bit word a ray, (bits of t) << 32 | slot,
+   lowered by an atomic min, so that a ray takes the smallest t of its
+   pairs, among equal t the first pair in sorted order, and a later pass
+   replaces a hit only with a strictly smaller t (`accel.traverse.RayBest`);
+   it adds each pair's counters to its ray's. Pass 0 walks each ray's
+   nearest `wave0` treelets, pass 1 every other pair whose entry t is below
+   the ray's best t by then; between the passes the driver reads t (and,
+   for any hit, whether there is a hit) back from the words;
 4. a ray whose list overflowed (and, for any hit, is still unoccluded)
    takes its whole hit from the two-level kernel (ops/traverse_treelets.py),
    which is launched with tmax 0 on every other ray; its counters stay
    those of the pairs walked before.
 
+The nearest `wave0` records of a list are picked by rank (fewer than
+`wave0` records of the ray lie before it in (entry t, slot) order), not by
+sorting the list: a ray lists each treelet once (each treelet has one
+reference in the top tree), so no two of its pairs share a key, and the
+sorted pair order is the same whatever order the list is in.
+
 The JAX package runs a third pass for pairs that a 1024-lane chunk had to
-defer (at most 16 treelets a chunk). One thread a pair defers nothing, so
+defer (at most 16 treelets a chunk). A lane a pair defers nothing, so
 there are two passes here and `TraversalStats.truncated` is zero. Counters
 are summed per ray over the pairs it walked (the JAX package takes, per
 pass, the largest of its chunks' packet counters). The driver's own work is
@@ -47,8 +60,8 @@ import torch
 
 from tpupt_torch.accel import traverse as trav
 from tpupt_torch.ops.traverse_treelets import intersect_treelets_cuda
-from tpupt_torch.ops.traverse_wide import (_check, alloc_outputs, check_rays,
-                                           check_table, raise_on_overflow)
+from tpupt_torch.ops.traverse_wide import (_check, check_rays, check_table,
+                                           raise_on_overflow)
 from tpupt_torch.utils.build import build_cuda, cuda_is_stale, cuda_library
 
 NAME = "traverse_requeue"
@@ -76,7 +89,7 @@ def load(path: str):
     lib.tpupt_bin_rays.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp]
     lib.tpupt_bin_rays.restype = ci
     lib.tpupt_walk_pairs.argtypes = (
-        [vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, ci] + [vp] * 9
+        [vp, vp, ci] + [vp] * 7 + [ci, ci] + [vp] * 6
         + [ci, ci, ci, vp])
     lib.tpupt_walk_pairs.restype = ci
     return lib
@@ -145,30 +158,48 @@ def bin_rays_cuda(ds, st, o, d, tmax, r_list: int = R_LIST, lib=None):
     return tid, tnear, ovf
 
 
-def walk_pairs_cuda(ds, st, o, d, key, ray, t_in, any_hit: bool = False,
-                    with_stats: bool = True, lib=None) -> trav.PairRecords:
-    """PairRecords of the (ray, treelet) pairs `key` / `ray` (P,) int32 for
-    rays o, d (N,3) float32 starting from t_in (N,) float32, all contiguous
-    on one device (see accel.traverse.walk_pairs).
+def walk_pairs_cuda(ds, st, o, d, key, ray, work, t_in, best,
+                    slot_base: int = 0, any_hit: bool = False,
+                    with_stats: bool = True, lib=None) -> trav.RayBest:
+    """Walk the first work[0] (at most P) of the (ray, treelet) pairs
+    `key` / `ray` (P,) int32 for rays o, d (N,3) float32 starting from t_in
+    (N,) float32, and fold what they find into `best` (a RayBest, updated
+    in place and returned) at slots slot_base + pair index; all contiguous
+    on one device (see accel.traverse.walk_pairs). `work` (2,) int32 is
+    [live pairs, 0]; the call uses its second int as the work counter and
+    leaves it at or past the first, so a `work` serves one call
+    (`trav.pair_work` makes one).
 
     CUDA tensors: launches kernel `walk_pairs` on the current stream (no
     synchronise) or raises. CPU tensors: the plain `walk_pairs`.
-    with_stats=False leaves the counters out of the kernel and returns zeros
-    for them. `lib` overrides the loaded library."""
+    with_stats=False leaves the counters untouched. `lib` overrides the
+    loaded library."""
     _require_two_level(st)
-    dev, _ = check_rays(o, d, t_in)
+    dev, n = check_rays(o, d, t_in)
     p = key.shape[0] if key.dim() == 1 else -1
     _check("key", key, (p,), torch.int32, dev)
     _check("ray", ray, (p,), torch.int32, dev)
+    _check("work", work, (2,), torch.int32, dev)
+    _check("best.word", best.word, (n,), torch.int64, dev)
+    s = best.payload.shape[0] if best.payload.dim() == 2 else -1
+    _check("best.payload", best.payload, (s, 4), torch.int32, dev)
+    for name in trav.RayBest._fields[2:]:
+        _check(f"best.{name}", getattr(best, name), (n,), torch.int32, dev)
+    if not (0 <= slot_base and slot_base + p <= min(s, trav.NO_SLOT)):
+        raise ValueError(f"slots {slot_base}..{slot_base + p} do not fit a "
+                         f"payload of {s} rows")
     check_table("ds.tl_nodes", ds.tl_nodes, 64, torch.float32, dev)
     check_table("ds.tl_prims", ds.tl_prims, 32, torch.float32, dev)
     check_table("ds.tl_offsets", ds.tl_offsets, 2, torch.int32, dev)
     if dev.type == "cpu":
-        return trav.walk_pairs(ds, st, o, d, key, ray, t_in, any_hit=any_hit)
+        return trav.walk_pairs(ds, st, o, d, key, ray, work, t_in, best,
+                               slot_base, any_hit=any_hit,
+                               with_stats=with_stats)
 
     lib = lib or get_lib()
-    outs, deepest, stat_ptrs = alloc_outputs(p, dev, with_stats, _OVERFLOW)
-    t, b1, b2, gid, ridx, nodes, leaves, tests = outs
+    deepest = _overflow_int(dev)
+    stats = ([c.data_ptr() for c in best[2:]] if with_stats
+             else [None, None, None])
     if p > 0:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -176,15 +207,15 @@ def walk_pairs_cuda(ds, st, o, d, key, ray, t_in, any_hit: bool = False,
                 ds.tl_nodes.data_ptr(), ds.tl_prims.data_ptr(),
                 ds.tl_prims.shape[0], ds.tl_offsets.data_ptr(),
                 o.data_ptr(), d.data_ptr(), key.data_ptr(), ray.data_ptr(),
-                t_in.data_ptr(), p, trav.pair_sentinel(st), t.data_ptr(),
-                b1.data_ptr(), b2.data_ptr(), gid.data_ptr(), ridx.data_ptr(),
-                *stat_ptrs, deepest.data_ptr(), int(any_hit),
-                int(st.n_spheres > 0), int(with_stats), stream)
+                work.data_ptr(), t_in.data_ptr(), p, slot_base,
+                best.word.data_ptr(),
+                best.payload.data_ptr(), *stats, deepest.data_ptr(),
+                int(any_hit), int(st.n_spheres > 0), int(with_stats), stream)
         if rc != 0:
             raise RuntimeError(
                 f"walk_pairs kernel launch failed: CUDA error {rc}")
         launches["walk_pairs"] += 1
-    return trav.PairRecords(t, gid, ridx, b1, b2, nodes, leaves, tests)
+    return best
 
 
 def _octants(d):
@@ -195,61 +226,47 @@ def _octants(d):
             + 4 * (d[:, 2] < 0).to(i32))
 
 
-def _initial_best(tmax):
-    """Each ray's best (t, gid, ridx, b1, b2) before the first pass."""
-    n, dev = tmax.shape[0], tmax.device
-    return (tmax.clone(), torch.full((n,), -1, dtype=torch.int32, device=dev),
-            torch.zeros(n, dtype=torch.int32, device=dev),
-            torch.zeros(n, device=dev), torch.zeros(n, device=dev))
+def first_wave(tnear, wave0: int):
+    """(N, R) bool: the records of each list that a stable sort by entry t
+    would put in its first `wave0` places, those with fewer than `wave0`
+    records of the ray before them in (entry t, slot) order: the ones at or
+    below the wave0-th smallest key (bits of entry t) * R + slot, found by
+    taking the smallest key out wave0 - 1 times (a key is unique in its
+    row). Entry t is never negative (empty records: 3e38), so its bits order
+    like it."""
+    r_list = tnear.shape[1]
+    if wave0 >= r_list:
+        return torch.ones(tnear.shape, dtype=torch.bool, device=tnear.device)
+    slot = torch.arange(r_list, device=tnear.device)
+    bits = tnear.contiguous().view(torch.int32).to(torch.int64)
+    order = bits * r_list + slot
+    rest = order
+    for _ in range(wave0 - 1):
+        rest = torch.where(rest == rest.amin(1, keepdim=True),
+                           torch.iinfo(torch.int64).max, rest)
+    return order <= rest.amin(1, keepdim=True)
 
 
-def _sorted_lists(tid, tnear):
-    """Each ray's list nearest first; empty records (tnear 3e38) stay last
-    and equal entry t keep their walk order."""
-    tnear, order = torch.sort(tnear, dim=1, stable=True)
-    return tid.gather(1, order), tnear
-
-
-def _pass_pairs(st, tid, tnear, octant, t_best, gid, walked, slot_limit,
+def _pass_pairs(st, tid, tnear, octant, t_best, hit, walked, wave,
                 any_hit: bool):
-    """The pairs of one pass: every unwalked (ray, slot < slot_limit) record
-    with a treelet whose entry t is below the ray's best t (for any hit only
-    on rays still unoccluded). Returns (key, ray, live): key (N * R,) i32
-    sorted by treelet * 8 + octant (the rest carry the sentinel and come
-    last), ray (N * R,) i32 each sorted pair's ray, live (N, R) bool."""
+    """The pairs of one pass: every unwalked record (in `wave`, unless that
+    is None) with a treelet whose entry t is below the ray's best t (for any
+    hit only on rays without a hit). Returns (key, ray, live, work): key
+    (N * R,) i32 sorted by treelet * 8 + octant (the rest carry the sentinel
+    and come last), ray (N * R,) i32 each sorted pair's ray, live (N, R)
+    bool, work (2,) i32 the number of live pairs and 0, all on the card."""
     n, r_list = tid.shape
-    slot = torch.arange(r_list, device=tid.device)
-    live = (~walked) & (tid >= 0) & (tnear < t_best[:, None]) \
-        & (slot < slot_limit)
-    if any_hit:
-        live = live & (gid < 0)[:, None]
+    live = (tid >= 0) & (tnear < t_best[:, None])
+    if walked is not None:
+        live = live & ~walked
+    if wave is not None:
+        live = live & wave
+    if any_hit and hit is not None:
+        live = live & ~hit[:, None]
     key = torch.where(live, tid * 8 + octant[:, None],
                       trav.pair_sentinel(st)).reshape(-1)
     key, perm = torch.sort(key, stable=True)
-    return key, (perm // r_list).to(torch.int32), live
-
-
-def _combine(rec: trav.PairRecords, ray, best):
-    """Each ray's winner among its pairs of this pass: the smallest t, and
-    among exactly that t the first pair in sorted order; it replaces the
-    ray's best (t, gid, ridx, b1, b2) only where its t is strictly smaller.
-    Returns the new best."""
-    t_best, gid, ridx, b1, b2 = best
-    n, p = t_best.shape[0], rec.t.shape[0]
-    ray = ray.long()
-    hit = rec.gid >= 0
-    win_t = torch.full((n,), float("inf"), device=t_best.device).scatter_reduce(
-        0, ray, torch.where(hit, rec.t, float("inf")), "amin")
-    improve = win_t < t_best
-    is_win = hit & (rec.t == win_t[ray]) & improve[ray]
-    pair = torch.arange(p, device=ray.device)
-    w = torch.full((n,), p, dtype=torch.int64, device=ray.device).scatter_reduce(
-        0, ray, torch.where(is_win, pair, p), "amin").clamp_max(p - 1)
-    return (torch.where(improve, win_t, t_best),
-            torch.where(improve, rec.gid[w], gid),
-            torch.where(improve, rec.ridx[w], ridx),
-            torch.where(improve, rec.b1[w], b1),
-            torch.where(improve, rec.b2[w], b2))
+    return key, (perm // r_list).to(torch.int32), live, trav.pair_work(live)
 
 
 def intersect_requeue(ds, st, o, d, tmax, any_hit: bool = False,
@@ -265,7 +282,7 @@ def intersect_requeue(ds, st, o, d, tmax, any_hit: bool = False,
         raise ValueError(f"wave0 must lie in 1..r_list, got {wave0}")
     check_rays(o, d, tmax)
     return _requeue(
-        bin_rays_cuda, functools.partial(walk_pairs_cuda, with_stats=with_stats),
+        bin_rays_cuda, walk_pairs_cuda,
         functools.partial(intersect_treelets_cuda, with_stats=False),
         ds, st, o, d, tmax, any_hit, with_stats, r_list, wave0)
 
@@ -275,32 +292,29 @@ def _requeue(bin_fn, walk, fallback, ds, st, o, d, tmax, any_hit: bool = False,
              wave0: int = WAVE0):
     """The re-queue traversal's passes over three functions with the
     signatures of `bin_rays_cuda(ds, st, o, d, tmax, r_list)`,
-    `walk_pairs_cuda(ds, st, o, d, key, ray, t_in, any_hit=)` and
-    `intersect_treelets_cuda(ds, st, o, d, tmax, any_hit=)`:
-    `intersect_requeue` passes the kernels' wrappers; given the plain
-    versions it is the same traversal without a kernel."""
-    dev, n = tmax.device, tmax.shape[0]
-    i32 = torch.int32
+    `walk_pairs_cuda(ds, st, o, d, key, ray, work, t_in, best, slot_base,
+    any_hit=, with_stats=)` and `intersect_treelets_cuda(ds, st, o, d, tmax,
+    any_hit=)`: `intersect_requeue` passes the kernels' wrappers; given the
+    plain versions it is the same traversal without a kernel."""
     tid, tnear, ovf = bin_fn(ds, st, o, d, tmax, r_list)
-    tid, tnear = _sorted_lists(tid, tnear)
     octant = _octants(d)
-    best = _initial_best(tmax)
-    counters = [torch.zeros(n, dtype=i32, device=dev) for _ in range(3)]
-    walked = torch.zeros(tid.shape, dtype=torch.bool, device=dev)
-    for slot_limit in (wave0, r_list):
-        key, ray, live = _pass_pairs(st, tid, tnear, octant, best[0], best[1],
-                                     walked, slot_limit, any_hit)
-        rec = walk(ds, st, o, d, key, ray, best[0], any_hit=any_hit)
-        best = _combine(rec, ray, best)
-        if with_stats:
-            for acc, c in zip(counters, rec[5:]):
-                acc.index_add_(0, ray, c)
-        walked = walked | live
-    t_best, gid, ridx, b1, b2 = best
+    p = tid.numel()
+    best = trav.new_ray_best(tmax, 2 * p)
+    t_best, hit = tmax, None
+    walked = None
+    for k, wave in enumerate((first_wave(tnear, wave0), None)):
+        key, ray, live, work = _pass_pairs(st, tid, tnear, octant, t_best,
+                                           hit, walked, wave, any_hit)
+        walk(ds, st, o, d, key, ray, work, t_best, best, k * p,
+             any_hit=any_hit, with_stats=with_stats)
+        t_best, hit = trav.best_t(best)
+        walked = live if walked is None else walked | live
+    t_best, gid, ridx, b1, b2 = trav.best_hit(best)
 
     # pairs still live after the last pass: none by construction (every
     # live pair of pass 1 is walked), counted as the JAX package counts them
-    rem = ((~walked) & (tid >= 0) & (tnear < t_best[:, None])).sum(1).to(i32)
+    rem = ((~walked) & (tid >= 0) & (tnear < t_best[:, None])).sum(
+        1, dtype=torch.int32)
     if any_hit:
         rem = torch.where(gid >= 0, 0, rem)
 
@@ -320,5 +334,5 @@ def _requeue(bin_fn, walk, fallback, ds, st, o, d, tmax, any_hit: bool = False,
     if any_hit:
         t = torch.where(gid >= 0, 0.0, t)
     hit = trav.Hit(valid=gid >= 0, t=t, prim=gid, b1=b1, b2=b2, p_obj=p_obj)
-    return hit, trav.TraversalStats(*counters,
+    return hit, trav.TraversalStats(*best[2:],
                                     truncated=torch.where(need_fb, 0, rem))
