@@ -25,11 +25,13 @@ render is compared with one made by the kernels' plain versions (on a
 256x256 crop in the middle of the image: the plain walkers take a second or
 more a traversal). K1, K2 and K3 are also held against their plain versions
 on batches of 98 % dead rays, of dead rays only, of one ray and of 131,073
-rays; at the main shape K1, K2, K3 and K5 print the wrapper call and the
+rays; at the main shape every kernel prints the wrapper call and the
 kernel alone (CUDA events around the launch), and K3 is timed as the
-re-queue driver's fallback launch too, with its bound; K5 is held against
-its plain version inside the driver's own pass loop (each ray's packed best
-hit, the winners' payloads and the counters, to the bit). There is no
+re-queue driver's fallback launch too, with its bound; K4 and K5 are held
+against their plain versions inside the driver's own pass loop (K4's lists
+and overflow counts; each ray's packed best hit, the winners' payloads and
+the counters), and K4 also on the dead-heavy, all-dead, one-ray and
+131,073-ray batches, all to the bit. There is no
 fallback: without a CUDA device, without the `tpupt_torch` package beside
 it, with a kernel that does not build, launch or agree, or with any failed
 check, it exits with a code other than 0 and prints no result line.
@@ -357,8 +359,9 @@ def build_kernels(variant_dir=None):
 
 def ptxas_lines(log: str) -> dict:
     """What `-Xptxas -v` says of every kernel instance (registers, stack
-    frame, spills, static shared memory), by mangled entry name. No kernel
-    takes dynamic shared memory."""
+    frame, spills, static shared memory), by mangled entry name. Dynamic
+    shared memory (K4's lists: 2 * 128 * (r_list | 1) ints a block) is not
+    in it."""
     out, entry = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -472,7 +475,8 @@ def against_plain_render(scene, tables, kind, dev, isect=None,
     if plain_isect is None:
         plain_fn = KERNELS[kind]["plain"]
 
-        def plain_isect(ds_, st_, o_, d_, tmax_, any_hit=False):
+        def plain_isect(ds_, st_, o_, d_, tmax_, any_hit=False,
+                        with_stats=True):
             return plain_fn(ds_, st_, o_, d_, tmax_, any_hit=any_hit)
 
     scene = dataclasses.replace(
@@ -656,11 +660,13 @@ def main(argv) -> int:
             c for base in wide_cases if base[0] in ("quadric_kinds",
                                                     "museum_65k")
             for c in edge_cases(*base, seed=43)], checks)
-        check_cases("traverse_treelets", treelet_cases + [
-            c for base in treelet_cases for c in edge_cases(*base, seed=41)],
-            checks)
+        treelet_edges = [c for base in treelet_cases
+                         for c in edge_cases(*base, seed=41)]
+        check_cases("traverse_treelets", treelet_cases + treelet_edges,
+                    checks)
         t0 = time.time()
         check_requeue(treelet_cases, checks)
+        check_bin_rays(treelet_edges, checks)
         requeue_checks_s = time.time() - t0
         t0 = time.time()
         check_cases("traverse_kdbsp", kd_cases, checks)
@@ -701,7 +707,7 @@ def main(argv) -> int:
             fail(f"museum film is {sc.film.xres}x{sc.film.yres}")
 
     # single-level tables -> traverse_wide
-    r65 = Renderer(sc65, device=dev, tables=tables65)
+    r65 = Renderer(sc65, device=dev, tables=tables65, collect_stats=True)
     film65, ms65, counts65 = drive(r65, {"traverse_wide": 1}, SPP_65K)
     fin65, lum65 = check_image(r65, film65, "museum_65k")
     plain65 = against_plain_render(sc65, tables65, "traverse_wide", dev)
@@ -716,7 +722,7 @@ def main(argv) -> int:
         name = f"{accel}{ndirs or ''}"
         sc_alt = with_accelerator(sc65, accel, ndirs)
         t0 = time.time()
-        r_alt = Renderer(sc_alt, device=dev)
+        r_alt = Renderer(sc_alt, device=dev, collect_stats=True)
         torch.cuda.synchronize()
         setup_s = time.time() - t0
         if r_alt.accel_stats["kind"] != accel or r_alt.st.alt_tree_depth < 2:
@@ -787,7 +793,7 @@ def main(argv) -> int:
     if not st.two_level:
         fail("the 1,032,454-triangle museum should take two-level tables")
     table_bytes = sum(t.numel() * t.element_size() for t in ds)
-    renderer = Renderer(scene, device=dev, tables=tables)
+    renderer = Renderer(scene, device=dev, tables=tables, collect_stats=True)
     film, ms_per_spp, counts = drive(renderer, {"traverse_treelets": 1}, SPP_1M)
     finite_share, mean_lum = check_image(renderer, film, "museum_1m")
     aov = renderer.aovs(film)
@@ -796,7 +802,8 @@ def main(argv) -> int:
     # the same tables through the re-queue driver -> bin_rays + walk_pairs,
     # and traverse_treelets for the rays whose list overflowed
     img1m = renderer.image(film)
-    r_rq = Renderer(scene, device=dev, tables=tables, isect=tr.intersect_requeue)
+    r_rq = Renderer(scene, device=dev, tables=tables,
+                    isect=tr.intersect_requeue, collect_stats=True)
     film_rq, ms_rq, counts_rq = drive(r_rq, REQUEUE_PER_CALL, SPP_1M)
     fin_rq, lum_rq = check_image(r_rq, film_rq, "museum_1m_requeue")
     rel_rq = mean_rel(r_rq.image(film_rq), img1m)
@@ -960,7 +967,7 @@ def main(argv) -> int:
             "source": "tpupt_torch/csrc/traverse_requeue.cu",
             "replaces": replaces, "launches": main_launches[kind],
             "max_abs_err": max(
-                [c["max_abs_err"][kind] for tag, c in checks.items()
+                [c["max_abs_err"].get(kind, 0.0) for tag, c in checks.items()
                  if tag.startswith("traverse_requeue/")]
                 + [sh["max_abs_err"], rq["any"][kind]["max_abs_err"]]),
             "ms": sh["kernel_ms"], "plain_ms": sh["plain_ms"],
@@ -968,9 +975,9 @@ def main(argv) -> int:
             "library_ms": None,
             "any_hit_ms": rq["any"][kind]["kernel_ms"],
             "any_hit_bound_ms": rq["any"][kind]["bound_ms"],
-            **({"kernel_alone_ms": sh["kernel_alone_ms"],
-                "any_hit_kernel_alone_ms": rq["any"][kind]["kernel_alone_ms"],
-                "dead_pair_bytes": sh["dead_pair_bytes"]
+            "kernel_alone_ms": sh["kernel_alone_ms"],
+            "any_hit_kernel_alone_ms": rq["any"][kind]["kernel_alone_ms"],
+            **({"dead_pair_bytes": sh["dead_pair_bytes"]
                 + rq["any"][kind]["dead_pair_bytes"]}
                if kind == "walk_pairs" else {}),
             "rays_per_launch": shape["rays"],
@@ -1017,9 +1024,12 @@ def profile_call(fn):
         return "not measured"
     ours = [r for r in rows if any(k in r[0] for k in (
         "bin_rays_kernel", "walk_pairs_kernel", "traverse_treelets_kernel"))]
+    sorts = [r for r in rows if "sort" in r[0].lower()]
     return {"device_ms": sum(r[1] for r in rows),
             "device_launches": sum(r[2] for r in rows),
             "hand_written_kernels_ms": sum(r[1] for r in ours),
+            "sort_kernels_ms": sum(r[1] for r in sorts),
+            "sort_kernel_launches": sum(r[2] for r in sorts),
             "by_kernel": [{"name": r[0][:70], "ms": r[1], "launches": r[2]}
                           for r in rows[:12]]}
 
@@ -1270,6 +1280,14 @@ def check_bits(tag, names, kernel, plain) -> float:
                 for a, b in zip(kernel, plain) if a.numel()), default=0.0)
 
 
+def by_entry_t(lists):
+    """(tid, tnear, ovf) with each list put through a stable sort by entry
+    t."""
+    tid, tnear, ovf = lists
+    tnear, order = torch.sort(tnear, dim=1, stable=True)
+    return tid.gather(1, order), tnear, ovf
+
+
 def clone_best(best):
     return trav.RayBest(*[x.clone() for x in best])
 
@@ -1461,6 +1479,18 @@ def check_requeue(cases, checks):
                 checks[tag] = res
 
 
+def check_bin_rays(cases, checks):
+    """K4 alone against its plain version on each case at each list
+    capacity of REQUEUE_R_LISTS, to the bit; fails the run on any miss."""
+    for name, ds, st, o, d, tmax in cases:
+        for r_list in REQUEUE_R_LISTS:
+            tag = f"traverse_requeue/{name}/r{r_list}/bin_rays"
+            checks[tag] = {"max_abs_err": {"bin_rays": check_bits(
+                tag, ("tid", "tnear", "ovf"),
+                tr.bin_rays_cuda(ds, st, o, d, tmax, r_list),
+                trav.bin_rays(ds, st, o, d, tmax, r_list))}}
+
+
 def requeue_shape_timing(tables, rays, fmad_lib, tag, k3_hits, var_libs):
     """K4, K5 (both passes of one driver call) and the whole driver on
     `rays` (closest hit) and on the same rays cut to half the scene's
@@ -1472,12 +1502,15 @@ def requeue_shape_timing(tables, rays, fmad_lib, tag, k3_hits, var_libs):
     `traverse_treelets` as the fallback.
 
     bound_ms is built as in main_shape_timing: for K4 the distinct top rows
-    the plain version reads, the rays read and the lists written, against
-    its top-tree steps; for K5 the distinct treelet node rows, prim rows and
-    offsets the plain version reads over both passes, and in each pass the
-    live pairs' keys and rays, each ray with a pair (its start t, origin and
-    direction read, its word and counters written) and each winner's
-    payload, against the node steps and prim tests of both passes. The
+    the plain version reads (224 of each 256-byte row: six bounds and a
+    meta a child), tmax of every ray and the origin and direction of the
+    live ones read, and every ray's whole list row (empty records too) and
+    overflow count written, against its top-tree steps; for K5 the distinct
+    treelet node rows, prim rows and offsets the plain version reads over
+    both passes, and in each pass the live pairs' keys and rays, each ray
+    with a pair (its start t, origin and direction read, its word and
+    counters written) and each winner's payload, against the node steps
+    and prim tests of both passes. The
     kernel walks only the live pairs (`work` on the card):
     `dead_pair_bytes` counts what it moves for the dead pair slots of the
     sorted key array, 0 where it walks exactly the live pairs (checked)."""
@@ -1535,8 +1568,12 @@ def requeue_shape_timing(tables, rays, fmad_lib, tag, k3_hits, var_libs):
         def walk(p, best, **kw):
             return walk_pass(ds, st, o2, d2, p, any_hit, best=best, **kw)
 
+        def bin_run(lib, tmax=tmax):
+            return tr.bin_rays_cuda(ds, st, o2, d2, tmax, lib=lib)
+
         res["bin_rays"] = dict(
             kernel_ms=time_ms(lambda: tr.bin_rays_cuda(ds, st, o2, d2, tmax), 10),
+            kernel_alone_ms=kernel_alone_ms(bin_run, tr.get_lib()),
             kernel_cold_l2_ms=time_cold_ms(
                 lambda: tr.bin_rays_cuda(ds, st, o2, d2, tmax), 10, flush),
             kernel_fmad_true_ms=time_ms(lambda: tr.bin_rays_cuda(
@@ -1566,7 +1603,7 @@ def requeue_shape_timing(tables, rays, fmad_lib, tag, k3_hits, var_libs):
                 for p, b in zip(passes, scratch)),
             plain_ms=sum(plain_ms["walk_pairs"]),
             plain_ms_per_pass=plain_ms["walk_pairs"],
-            pair_slots_per_pass=passes[0]["key"].shape[0],
+            pair_slots_per_pass=[p["key"].shape[0] for p in passes],
             live_pairs_per_pass=[p["live_pairs"] for p in passes],
             rays_with_pairs_per_pass=[p["rays_with_pairs"] for p in passes],
             winners_per_pass=[p["winners"] for p in passes],
@@ -1579,11 +1616,13 @@ def requeue_shape_timing(tables, rays, fmad_lib, tag, k3_hits, var_libs):
             max_abs_err=err["walk_pairs"], **bound(walk_bytes, walk_ops))
         variants = var_libs.get("traverse_requeue")
         if variants:
+            # a build that writes its lists in walk order (the one before) is
+            # held after the stable sort by entry t the plain version ends
+            # with, which leaves lists in (entry t, walk order) as they are
             res["bin_rays"]["variants"] = variant_timing(
-                lambda lib: tr.bin_rays_cuda(ds, st, o2, d2, tmax, lib=lib),
-                tr.get_lib(), variants, lambda name, got: check_bits(
+                bin_run, tr.get_lib(), variants, lambda name, got: check_bits(
                     f"{tag}/{mode}/bin_rays variant {name}",
-                    ("tid", "tnear", "ovf"), got, lists))
+                    ("tid", "tnear", "ovf"), by_entry_t(got), lists))
             res["walk_pairs"]["variants"] = variant_timing(
                 lambda lib: [walk(p, b, lib=lib)
                              for p, b in zip(passes, scratch)],

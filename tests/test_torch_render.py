@@ -154,6 +154,42 @@ def test_own_upload_renders_like_carried_tables(tmp_path):
     np.testing.assert_array_equal(a.aov.numpy(), b.aov.numpy())
 
 
+def test_collect_stats_reaches_the_traversal_and_changes_no_image(
+        tmp_path, monkeypatch):
+    """`Renderer(collect_stats=...)` defaults to False, as the JAX
+    package's does, and hands the flag to the picked traversal's
+    `with_stats` on every call. The film is the same with it on and off.
+    On the CPU the wrapper runs its plain walker, which always counts, as
+    the JAX package's XLA walkers do off the TPU (test_film_matches_jax_
+    renderer holds the two AOVs together with both flags at their
+    default), so the counter AOVs are the same too."""
+    import inspect
+
+    for cls in (Renderer, JaxRenderer):
+        flag = inspect.signature(cls).parameters["collect_stats"]
+        assert flag.default is False, cls
+    _, sc = _scenes("smoke", tmp_path)
+    seen = []
+    wrapper = traverse_wide.intersect_wide_cuda
+
+    def spy(*args, with_stats=True, **kw):
+        seen.append(with_stats)
+        return wrapper(*args, with_stats=with_stats, **kw)
+
+    monkeypatch.setattr(traverse_wide, "intersect_wide_cuda", spy)
+    films = {}
+    for flag in (False, True):
+        del seen[:]
+        films[flag] = Renderer(sc, device="cpu",
+                               collect_stats=flag).render(spp=1)
+        assert seen and set(seen) == {flag}
+    off, on = films[False], films[True]
+    for f in ("rgb", "weight", "aov"):
+        np.testing.assert_array_equal(getattr(off, f).numpy(),
+                                      getattr(on, f).numpy(), err_msg=f)
+    assert float(off.aov[..., 0].sum()) > 0 and float(off.rgb.sum()) > 0
+
+
 @pytest.mark.parametrize("what", ["integrator", "accelerator", "sampler"])
 def test_renderer_refuses_unported_configurations(what, tmp_path, monkeypatch):
     import dataclasses

@@ -12,11 +12,20 @@ port's metas), so treelet ids are compared directly. On the CPU the wrappers
 run the kernels' plain versions. Tolerances, and why:
 
 - per-ray lists against the JAX package's TPU kernel (interpret mode), on
-  live rays: treelet ids and overflow counts exact; entry t within 1 ulp
-  (the slab products are the same operations; the entries are only sort
-  keys). The port records, in the TPU lane's order, only the boxes its own
-  ray hits; a dead lane records nothing here and whatever it stands in
-  there, so dead lanes are left out.
+  live rays: the port's lists, as they come, against the JAX package's put
+  through a stable sort by entry t (the port keeps the same first records
+  of the walk and orders them by (entry t, walk order)): treelet ids and
+  overflow counts exact; entry t within 1 ulp (the slab products are the
+  same operations; the entries are only sort keys). The port records, in
+  the TPU lane's order, only the boxes its own ray hits; a dead lane
+  records nothing here and whatever it stands in there, so dead lanes are
+  left out.
+- the driver's passes, built from the lists' columns, against the passes
+  as they were built before the lists came in entry t order (a rank mask
+  over walk-order lists, all N * R slots sorted in each pass), fed the JAX
+  package's walk-order lists: each ray's packed word, the winners'
+  payloads, the counters after each pass and the final `Hit` and counters
+  equal to the bit.
 - the driver against the port's two-level walker: `valid` exact; closest hit
   `prim`, `t`, `p_obj` and the barycentrics of triangle hits equal to the
   bit, except on rays where the two find different prims at exactly the
@@ -35,8 +44,9 @@ run the kernels' plain versions. Tolerances, and why:
 - `walk_pairs`' contract, on the port alone (no JAX call): each ray's packed
   word (bits of t) << 32 | slot takes the first of two pairs with equal t
   and, from a later pass, only a strictly smaller t; a ray without pairs
-  keeps tmax (inf included) and no slot; the rank mask picks the records a
-  stable sort by entry t puts first, ties and empty records included; the
+  keeps tmax (inf included) and no slot; the rank mask of the old pass
+  building picks the records a stable sort by entry t puts first, ties and
+  empty records included; the
   counters a pass adds to a ray equal the sums over its pairs walked one by
   one; a live count larger than the pairs walks the pairs there are, and a
   used work counter walks nothing. All exact.
@@ -120,13 +130,14 @@ def _torch(*arrays):
 # ------------------------ (a) per-ray lists ---------------------------------
 
 
-@pytest.mark.parametrize("r_list", [16, 2])
-def test_lists_match_the_pallas_kernel_in_interpret_mode(scene, r_list):
-    """`bin_rays` against `_bin_rays(..., interpret=True)` (kernel
-    `_kernel_top_perlane`) on one 1024-lane packet; every eighth ray dead."""
-    name, (ds_j, _), (ds, st), o, d = scene
-    tmax = np.full(N_RAYS, np.inf, np.float32)
-    tmax[::8] = 0.0
+@functools.lru_cache(maxsize=None)
+def _jax_lists(name, r_list, dead_every):
+    """(tid, tnear, ovf) numpy of `_bin_rays(..., interpret=True)` (kernel
+    `_kernel_top_perlane`) for the scene's rays in one 1024-lane packet,
+    every `dead_every`-th ray dead (tmax 0, none for 0), the rest with tmax
+    inf: each ray's treelets in walk order."""
+    _, (ds_j, _), _, o, d = _scene(name)
+    tmax = _tmax(dead_every)
     pad = 1024 - N_RAYS
     oj = np.concatenate([o, np.ones((pad, 3), np.float32)])
     dj = np.concatenate([d, np.ones((pad, 3), np.float32)])
@@ -142,28 +153,50 @@ def test_lists_match_the_pallas_kernel_in_interpret_mode(scene, r_list):
     top = np.asarray(ds_j.top_tiles)
     assert len(top) <= TOP_ROWS
     top = np.pad(top, ((0, TOP_ROWS - len(top)),) + ((0, 0),) * (top.ndim - 1))
-    tid_j, tn_j, ovf_j = jrq._bin_rays(
+    out = jrq._bin_rays(
         jnp.asarray(top), pk(oj[:, 0]), pk(oj[:, 1]), pk(oj[:, 2]),
         pk(inv[:, 0]), pk(inv[:, 1]), pk(inv[:, 2]), pk(tj),
         r_list=r_list, interpret=True)
+    return tuple(np.asarray(a)[:N_RAYS] for a in out)
+
+
+def _tmax(dead_every):
+    tmax = np.full(N_RAYS, np.inf, np.float32)
+    if dead_every:
+        tmax[::dead_every] = 0.0
+    return tmax
+
+
+def _by_entry_t(tid, tnear):
+    """Each list put through a stable sort by entry t."""
+    order = np.argsort(tnear, axis=1, kind="stable")
+    return (np.take_along_axis(tid, order, 1),
+            np.take_along_axis(tnear, order, 1))
+
+
+@pytest.mark.parametrize("r_list", [16, 2])
+def test_lists_match_the_pallas_kernel_in_interpret_mode(scene, r_list):
+    """`bin_rays` against `_bin_rays(..., interpret=True)` (kernel
+    `_kernel_top_perlane`) on one 1024-lane packet; every eighth ray dead.
+    The port's lists are compared as they come, the JAX package's (walk
+    order) after a stable sort by entry t."""
+    name, _, (ds, st), o, d = scene
+    tmax = _tmax(8)
+    tid_j, tn_j, ovf_j = _jax_lists(name, r_list, 8)
     before = dict(traverse_requeue.launches)
     tid, tn, ovf = bin_rays_cuda(ds, st, *_torch(o, d, tmax), r_list=r_list)
     assert traverse_requeue.launches == before   # CPU: the plain version
 
     live = tmax > 0
-    tid_j, tn_j = np.asarray(tid_j)[:N_RAYS], np.asarray(tn_j)[:N_RAYS]
-    ovf_j = np.asarray(ovf_j)[:N_RAYS]
+    tid_j, tn_j = _by_entry_t(tid_j, tn_j)
     tid, tn = tid.numpy(), tn.numpy()
-    # both sides nearest first, equal entry t in record order
-    oj_ = np.argsort(tn_j, axis=1, kind="stable")
-    ot_ = np.argsort(tn, axis=1, kind="stable")
-    tid_j, tn_j = (np.take_along_axis(a, oj_, 1) for a in (tid_j, tn_j))
-    tid, tn = (np.take_along_axis(a, ot_, 1) for a in (tid, tn))
     np.testing.assert_array_equal(tid[live], tid_j[live])
     np.testing.assert_array_equal(ovf.numpy()[live], ovf_j[live])
     assert testscenes.ulp_distance(tn[live], tn_j[live]).max() <= 1
     assert (tid[~live] == -1).all() and (ovf.numpy()[~live] == 0).all()
     assert (tid[live] >= 0).any(1).mean() > 0.2
+    # the port's lists are really in entry t order, empty records last
+    assert (np.diff(tn, axis=1) >= 0).all()
     if r_list == 2 and name == "quadrics":
         # lists overflow at 2 (the cluster scene's 8 treelets lie apart: its
         # rays seldom cross three)
@@ -274,7 +307,7 @@ def test_driver_matches_the_jax_drivers_in_interpret_mode():
 def test_render_through_the_driver_equals_the_default_render():
     """16x16 pixels of a small two-level scene: `Renderer(isect=
     intersect_requeue)` against the Renderer's own pick (the two-level
-    walker on the CPU)."""
+    walker on the CPU), both with counters on."""
     txt = testscenes.triangle_clusters_pbrt(600, 12, 6, lights=True)
     sc = flatten(parse_string(txt))
     sc = dataclasses.replace(sc, film=dataclasses.replace(sc.film, xres=16,
@@ -283,12 +316,14 @@ def test_render_through_the_driver_equals_the_default_render():
                     two_level=True, treelet_budget=(16, 128))
     calls = []
 
-    def requeue(*args, any_hit=False):
+    def requeue(*args, any_hit=False, with_stats=True):
         calls.append(any_hit)
-        return intersect_requeue(*args, any_hit=any_hit)
+        return intersect_requeue(*args, any_hit=any_hit, with_stats=with_stats)
 
-    f1 = Renderer(sc, device="cpu", tables=tables).render(spp=1)
-    f2 = Renderer(sc, device="cpu", tables=tables, isect=requeue).render(spp=1)
+    f1 = Renderer(sc, device="cpu", tables=tables,
+                  collect_stats=True).render(spp=1)
+    f2 = Renderer(sc, device="cpu", tables=tables, isect=requeue,
+                  collect_stats=True).render(spp=1)
     assert len(calls) == 2 * (sc.integrator.max_depth + 1)
     np.testing.assert_array_equal(f2.rgb.numpy(), f1.rgb.numpy())
     np.testing.assert_array_equal(f2.weight.numpy(), f1.weight.numpy())
@@ -296,6 +331,32 @@ def test_render_through_the_driver_equals_the_default_render():
     np.testing.assert_array_equal(a2[..., 3], a1[..., 3])   # path length
     np.testing.assert_array_equal(a2[..., 1] > 0, a1[..., 1] > 0)
     assert float(f2.rgb.sum()) > 0
+
+
+def test_render_through_the_driver_follows_collect_stats():
+    """A caller's traversal (`Renderer(isect=intersect_requeue)`) gets the
+    Renderer's `collect_stats` as its `with_stats`: the driver's plain pass
+    loop counts as its kernels do, so without the flag the node-visit,
+    leaf-visit and prim-test AOVs stay 0 and with it they count; the film
+    and the path-length AOV are the same either way."""
+    txt = testscenes.triangle_clusters_pbrt(600, 12, 6, lights=True)
+    sc = flatten(parse_string(txt))
+    sc = dataclasses.replace(sc, film=dataclasses.replace(sc.film, xres=12,
+                                                          yres=12))
+    tables = upload(sc, light_strategy="spatial", device="cpu",
+                    two_level=True, treelet_budget=(16, 128))
+    films = {flag: Renderer(sc, device="cpu", tables=tables,
+                            isect=intersect_requeue,
+                            collect_stats=flag).render(spp=1)
+             for flag in (False, True)}
+    off, on = films[False], films[True]
+    np.testing.assert_array_equal(off.rgb.numpy(), on.rgb.numpy())
+    np.testing.assert_array_equal(off.weight.numpy(), on.weight.numpy())
+    np.testing.assert_array_equal(off.aov[..., 3].numpy(),
+                                  on.aov[..., 3].numpy())
+    assert not off.aov[..., :3].any()
+    assert (on.aov[..., :3].sum((0, 1)) > 0).all()
+    assert float(on.rgb.sum()) > 0
 
 
 # ------------------------ wrappers ------------------------------------------
@@ -406,6 +467,29 @@ def test_the_packed_word_picks_the_first_pair_on_equal_t_and_a_later_pass_only_o
     assert torch.equal(trav.best_t(trav.new_ray_best(cut, 1))[0], cut)
 
 
+def first_wave(tnear, wave0: int):
+    """(N, R) bool: the records of each list that a stable sort by entry t
+    would put in its first `wave0` places, those with fewer than `wave0`
+    records of the ray before them in (entry t, slot) order: the ones at or
+    below the wave0-th smallest key (bits of entry t) * R + slot, found by
+    taking the smallest key out wave0 - 1 times (a key is unique in its
+    row). Entry t is never negative (empty records: 3e38), so its bits order
+    like it. The driver picked pass 0's records from walk-order lists so
+    until the lists came in entry t order; it is the oracle of
+    `_passes_as_they_were`."""
+    r_list = tnear.shape[1]
+    if wave0 >= r_list:
+        return torch.ones(tnear.shape, dtype=torch.bool, device=tnear.device)
+    slot = torch.arange(r_list, device=tnear.device)
+    bits = tnear.contiguous().view(torch.int32).to(torch.int64)
+    order = bits * r_list + slot
+    rest = order
+    for _ in range(wave0 - 1):
+        rest = torch.where(rest == rest.amin(1, keepdim=True),
+                           torch.iinfo(torch.int64).max, rest)
+    return order <= rest.amin(1, keepdim=True)
+
+
 def test_first_wave_equals_the_stable_sort_selection():
     """The rank mask against the places a stable sort by entry t gives, on
     lists with tied entry t, zero entries and empty records (3e38)."""
@@ -418,8 +502,106 @@ def test_first_wave_equals_the_stable_sort_selection():
     tn = torch.from_numpy(tnear)
     place = torch.argsort(torch.argsort(tn, dim=1, stable=True), dim=1)
     for wave0 in (1, 2, 3, r_list):
-        assert torch.equal(traverse_requeue.first_wave(tn, wave0),
-                           place < wave0), wave0
+        assert torch.equal(first_wave(tn, wave0), place < wave0), wave0
+
+
+def _passes_as_they_were(ds, st, o, d, tmax, lists, any_hit):
+    """The driver's passes as they were built before the lists came in
+    entry t order, over walk-order lists (tid, tnear, ovf): pass 0's records
+    picked by `first_wave`, every pass building and stably sorting all
+    N * R slots, walked by the plain `walk_pairs`. Returns (the rays' best
+    hits after each pass, (Hit, TraversalStats))."""
+    tid, tnear, ovf = lists
+    n, r_list = tid.shape
+    octant = traverse_requeue._octants(d)
+    p = tid.numel()
+    best = trav.new_ray_best(tmax, 2 * p)
+    t_best, hit, walked, after = tmax, None, None, []
+    for k, wave in enumerate((first_wave(tnear, traverse_requeue.WAVE0),
+                              None)):
+        live = (tid >= 0) & (tnear < t_best[:, None])
+        if walked is not None:
+            live = live & ~walked
+        if wave is not None:
+            live = live & wave
+        if any_hit and hit is not None:
+            live = live & ~hit[:, None]
+        key = torch.where(live, tid * 8 + octant[:, None],
+                          trav.pair_sentinel(st)).reshape(-1)
+        key, perm = torch.sort(key, stable=True)
+        trav.walk_pairs(ds, st, o, d, key, (perm // r_list).to(torch.int32),
+                        trav.pair_work(live), t_best, best, k * p,
+                        any_hit=any_hit)
+        after.append(trav.RayBest(*[x.clone() for x in best]))
+        t_best, hit = trav.best_t(best)
+        walked = live if walked is None else walked | live
+    t_best, gid, ridx, b1, b2 = trav.best_hit(best)
+    rem = ((~walked) & (tid >= 0) & (tnear < t_best[:, None])).sum(
+        1, dtype=torch.int32)
+    if any_hit:
+        rem = torch.where(gid >= 0, 0, rem)
+    need_fb = ovf > 0
+    if any_hit:
+        need_fb = need_fb & (gid < 0)
+    hit_fb, _ = trav.intersect_two_level(ds, st, o, d,
+                                         torch.where(need_fb, tmax, 0.0),
+                                         any_hit=any_hit)
+    t = torch.where(need_fb, hit_fb.t, t_best)
+    gid = torch.where(need_fb, hit_fb.prim, gid)
+    b1 = torch.where(need_fb, hit_fb.b1, b1)
+    b2 = torch.where(need_fb, hit_fb.b2, b2)
+    p_obj = torch.where(need_fb[:, None], hit_fb.p_obj,
+                        trav.quadric_hit_point(ds.tl_prims, st, o, d, t_best,
+                                               ridx))
+    if any_hit:
+        t = torch.where(gid >= 0, 0.0, t)
+    out = trav.Hit(valid=gid >= 0, t=t, prim=gid, b1=b1, b2=b2, p_obj=p_obj)
+    return after, (out, trav.TraversalStats(
+        *best[2:], truncated=torch.where(need_fb, 0, rem)))
+
+
+def as_bits(x):
+    return x.contiguous().view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("r_list", [16, 2])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_passes_from_list_columns_equal_the_rank_mask_passes(scene, r_list,
+                                                             any_hit):
+    """The driver's passes (columns [0, wave0) and [wave0, R) of the lists
+    in entry t order, N * wave0 and N * (R - wave0) keys sorted) against
+    `_passes_as_they_were` over the JAX package's walk-order lists
+    (interpret mode), all rays live: after each pass every ray's packed
+    word, its winner's payload and its counters, and the final `Hit` and
+    counters, equal to the bit."""
+    name, _, (ds, st), o, d = scene
+    to, td, tt = _torch(o, d, _tmax(0))
+    lists = [torch.from_numpy(np.array(a)) for a in _jax_lists(name, r_list, 0)]
+    after = []
+
+    def walk(*args, **kw):
+        best = walk_pairs_cuda(*args, **kw)
+        after.append(trav.RayBest(*[x.clone() for x in best]))
+        return best
+
+    out = traverse_requeue._requeue(trav.bin_rays, walk,
+                                    trav.intersect_two_level, ds, st, to, td,
+                                    tt, any_hit=any_hit, r_list=r_list)
+    want_after, want = _passes_as_they_were(ds, st, to, td, tt, lists,
+                                            any_hit)
+    assert len(after) == len(want_after) == 2
+    for k, (a, b) in enumerate(zip(after, want_after)):
+        for f in ("word", "node_visits", "leaf_visits", "prim_tests"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), (k, f)
+        for x, y in zip(trav.best_hit(a), trav.best_hit(b)):
+            assert torch.equal(as_bits(x), as_bits(y)), k
+    for f, x, y in zip(trav.Hit._fields + trav.TraversalStats._fields,
+                       [*out[0], *out[1]], [*want[0], *want[1]]):
+        assert torch.equal(as_bits(x), as_bits(y)), f
+    assert int(out[0].valid.sum()) > 20
+    assert int(trav.best_t(after[0])[1].sum()) > 20   # pass 0 found hits
+    if r_list == 2 and name == "quadrics":
+        assert int((lists[2] > 0).sum()) > 10   # the fallback took these
 
 
 @pytest.mark.parametrize("any_hit", [False, True])

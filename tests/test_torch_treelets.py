@@ -349,7 +349,7 @@ def test_renderer_takes_the_two_level_path(name, tmp_path):
     assert r2._isect is intersect_treelets_cuda
     calls = []
 
-    def single(ds, st, o, d, tmax, any_hit=False):
+    def single(ds, st, o, d, tmax, any_hit=False, with_stats=True):
         calls.append(any_hit)
         return trav.intersect_wide(ds, st, o, d, tmax, any_hit=any_hit)
 

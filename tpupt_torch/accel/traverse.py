@@ -341,11 +341,15 @@ def bin_rays(ds: DeviceScene, st: SceneStatics, o, d, tmax,
     of `_interior_step` against the ray's tmax, no near-first sort),
     recording each treelet reference it hits as (treelet id, max(t_near,
     0)) and pushing each interior child it hits. That is the JAX package's
-    per-lane record order (`_kernel_top_perlane`), so a list that overflows
-    keeps the same records. Past `r_list` records a ray only counts; dead
-    rays get empty lists. Returns tid (N, R) i32 (-1 empty), tnear (N, R)
-    f32 (3e38 empty) and ovf (N,) i32. `touched` = (top row mask, one-int
-    tensor of node steps), when given, is filled in."""
+    per-lane record order (`_kernel_top_perlane`): a ray keeps the first
+    `r_list` treelets of that walk order, so a list that overflows keeps
+    the JAX package's records, and past them it only counts. The kept
+    records are returned ordered by (entry t, walk order), a stable sort by
+    entry t (never negative: -0.0 is stored as +0.0, so float and bit order
+    agree); empty records come last, and dead rays get empty lists. Returns
+    tid (N, R) i32 (-1 empty), tnear (N, R) f32 (3e38 empty) and ovf (N,)
+    i32. `touched` = (top row mask, one-int tensor of node steps), when
+    given, is filled in."""
     if not st.two_level:
         raise ValueError("the scene was uploaded without two-level tables")
     n = o.shape[0]
@@ -395,7 +399,8 @@ def bin_rays(ds: DeviceScene, st: SceneStatics, o, d, tmax,
             slot = torch.where(push, sp, WIDE_STACK).clamp_max(WIDE_STACK)
             stack.scatter_(1, slot.long()[:, None], m[:, None])
             sp = sp + push.to(i32)
-    return tid[:, :r_list].contiguous(), tnear[:, :r_list].contiguous(), ovf
+    tnear, order = torch.sort(tnear[:, :r_list], dim=1, stable=True)
+    return tid[:, :r_list].gather(1, order), tnear.contiguous(), ovf
 
 
 NO_SLOT = 0xFFFFFFFF   # payload slot of a ray that has no hit yet

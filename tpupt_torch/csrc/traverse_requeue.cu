@@ -13,9 +13,11 @@
 // child box a ray hits lies inside a parent box it hits (the slab bounds and
 // their rounding are monotone), so this visits the ray's treelets in exactly
 // the order of the TPU lane, and a list that overflows keeps the same
-// records. Up to `r_list` (treelet id, max(t_near, 0)) records are written;
-// the rest are only counted. A dead ray (tmax 0) leaves at once with an
-// empty list.
+// records: the first `r_list` (treelet id, max(t_near, 0)) of the walk; the
+// rest are only counted. The kept records are written ordered by (entry t,
+// walk order), so that the driver takes each ray's nearest treelets as the
+// first columns of its list and sorts only the keys of a pass's columns. A
+// dead ray (tmax 0) leaves at once with an empty list.
 //
 // walk_pairs replaces the TPU kernel tpupt/ops/traverse_requeue.py
 // `_kernel_chunk` (entry `_walk_chunks`). That kernel takes 1024-lane chunks
@@ -58,11 +60,32 @@
 // one treelet (PERF.md).
 //
 // What bounds them: bin_rays reads a few hundred top rows that every ray
-// shares (they stay in L1/L2) and writes 8 bytes a record, uncoalesced (one
-// row of `r_list` records a thread); walk_pairs is bound like
-// traverse_treelets.cu by dependent, random 256-byte node-row and 128-byte
-// prim-row gathers, latency and divergence, with the byte and operation
-// bounds far below the measured time.
+// shares and writes 8 bytes a record; it waits on the walks of its rays'
+// divergent warps, on their row and stack reads from L1 and on its stores,
+// not on bytes or operations. Its design, timed against the kernel it
+// replaced and other builds on an H100 (PERF.md):
+// - each thread appends its kept records to its own list in shared memory
+//   (r_list tid and r_list entry-t words, rows of r_list | 1 ints, so that
+//   a warp's threads touch 32 banks) and sorts the list by insertion once
+//   its walk is done: 13 % faster than inserting each record at its place
+//   as it is found, which stalls a whole warp on one lane's shifts;
+// - a warp then writes its 32 rows, which lie side by side in the
+//   (N, r_list) outputs, word by word with neighbouring lanes on
+//   neighbouring words, where a store of one slot of 32 rows wrote 32
+//   scattered words;
+// - the launch carves out of each SM's L1 only the shared memory that one
+//   wave's blocks take, leaving the rest for the top rows and the stacks
+//   (set_bin_rays_carveout): 8-10 % faster than the kernel it replaced,
+//   where the runtime's own carve-out left the same kernel 0-2.5 % slower;
+// - the walk holds one child's six bounds and meta at a time (three 8-byte
+//   loads and one int a slab test), 36 registers in place of 72. That alone
+//   gained nothing over that kernel, and these were slower than it: a warp
+//   walking the union of its rays' walks (one row read a step for all
+//   lanes; the union is large) by 30-43 %, a sort network in registers by
+//   20-25 %, the top tree staged in shared memory by 30 %.
+// walk_pairs is bound like traverse_treelets.cu by dependent, random
+// 256-byte node-row and 128-byte prim-row gathers, latency and divergence,
+// with the byte and operation bounds far below the measured time.
 //
 // Semantics are those of the plain PyTorch versions
 // tpupt_torch/accel/traverse.py `bin_rays` and `walk_pairs`, operation for
@@ -73,61 +96,60 @@
 
 namespace {
 
-__global__ void __launch_bounds__(128)
-bin_rays_kernel(const float4* __restrict__ top_nodes,
+#define BIN_THREADS 128
+
+__global__ void __launch_bounds__(BIN_THREADS, 8)
+bin_rays_kernel(const float* __restrict__ top_nodes,
                 const float* __restrict__ o, const float* __restrict__ d,
                 const float* __restrict__ tmax, int n, int r_list,
                 int* __restrict__ tid_out, float* __restrict__ tn_out,
                 int* __restrict__ ovf_out, int* __restrict__ deepest) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int* tid_row = tid_out + (size_t)i * r_list;
-  float* tn_row = tn_out + (size_t)i * r_list;
-  float tm = tmax[i];
+  // this thread's kept records: tid words, then entry-t words
+  extern __shared__ int lists[];
+  const int stride = r_list | 1;
+  int* my_tid = lists + threadIdx.x * stride;
+  float* my_tn = reinterpret_cast<float*>(lists + (BIN_THREADS + threadIdx.x)
+                                          * stride);
+  for (int k = 0; k < r_list; k++) {
+    my_tid[k] = -1;
+    my_tn[k] = BIG_KEY;
+  }
+  int i = blockIdx.x * BIN_THREADS + threadIdx.x;
   int cnt = 0;
 
-  // dead lanes (tmax == 0) leave with an empty list
+  // dead lanes (tmax == 0) and lanes past the end keep an empty list
+  float tm = i < n ? tmax[i] : 0.0f;
   if (tm > 0.0f) {
-    RayConst r;
-    ray_setup(o, d, i, r);
+    float ox = o[3 * i + 0], oy = o[3 * i + 1], oz = o[3 * i + 2];
+    float ix = inv_guarded(d[3 * i + 0]), iy = inv_guarded(d[3 * i + 1]),
+          iz = inv_guarded(d[3 * i + 2]);
     int stack[WIDE_STACK];
     int sp = 1;
     int sp_max = 1;
     stack[0] = 0;  // top node id 0
     while (sp > 0) {
-      const float4* row = top_nodes + (size_t)stack[--sp] * 16;
-      float bounds[48];
-#pragma unroll
-      for (int q = 0; q < 12; q++) {
-        float4 v = __ldg(row + q);
-        bounds[4 * q + 0] = v.x; bounds[4 * q + 1] = v.y;
-        bounds[4 * q + 2] = v.z; bounds[4 * q + 3] = v.w;
-      }
-      float4 m0 = __ldg(row + 12), m1 = __ldg(row + 13);
-      int metas[8] = {__float_as_int(m0.x), __float_as_int(m0.y),
-                      __float_as_int(m0.z), __float_as_int(m0.w),
-                      __float_as_int(m1.x), __float_as_int(m1.y),
-                      __float_as_int(m1.z), __float_as_int(m1.w)};
+      const float* row = top_nodes + (size_t)stack[--sp] * 64;
       // slot order: records and pushes follow the TPU lane's order
-#pragma unroll
       for (int c = 0; c < 8; c++) {
-        float tlx = (bounds[6 * c + 0] - r.ox) * r.ix;
-        float tly = (bounds[6 * c + 1] - r.oy) * r.iy;
-        float tlz = (bounds[6 * c + 2] - r.oz) * r.iz;
-        float thx = (bounds[6 * c + 3] - r.ox) * r.ix;
-        float thy = (bounds[6 * c + 4] - r.oy) * r.iy;
-        float thz = (bounds[6 * c + 5] - r.oz) * r.iz;
+        const float2* b = reinterpret_cast<const float2*>(row + 6 * c);
+        float2 b0 = __ldg(b), b1 = __ldg(b + 1), b2 = __ldg(b + 2);
+        int m = __ldg(reinterpret_cast<const int*>(row) + 48 + c);
+        float tlx = (b0.x - ox) * ix;
+        float tly = (b0.y - oy) * iy;
+        float tlz = (b1.x - oz) * iz;
+        float thx = (b1.y - ox) * ix;
+        float thy = (b2.x - oy) * iy;
+        float thz = (b2.y - oz) * iz;
         float t_near = max3(fminf(tlx, thx), fminf(tly, thy), fminf(tlz, thz));
         float t_far = min3(fmaxf(tlx, thx), fmaxf(tly, thy), fmaxf(tlz, thz))
                       * 1.0000004f;
-        int m = metas[c];
         bool hit = (t_near <= t_far) && (t_far > 0.0f) && (t_near < tm) &&
                    (m != META_EMPTY);
         if (!hit) continue;
         if (m < 0) {  // treelet reference -(tid) - 1
           if (cnt < r_list) {
-            tid_row[cnt] = -m - 1;
-            tn_row[cnt] = t_near > 0.0f ? t_near : 0.0f;
+            my_tn[cnt] = t_near > 0.0f ? t_near : 0.0f;
+            my_tid[cnt] = -m - 1;
           }
           cnt++;
         } else {
@@ -141,11 +163,43 @@ bin_rays_kernel(const float4* __restrict__ top_nodes,
     }
     if (sp_max > WIDE_STACK) atomicMax(deepest, sp_max);
   }
-  for (int k = cnt; k < r_list; k++) {
-    tid_row[k] = -1;
-    tn_row[k] = BIG_KEY;
+  if (i < n) ovf_out[i] = max(cnt - r_list, 0);
+  for (int a = 1, kept = min(cnt, r_list); a < kept; a++) {
+    float t = my_tn[a];
+    int v = my_tid[a];
+    int j = a;
+    for (; j > 0 && my_tn[j - 1] > t; j--) {
+      my_tn[j] = my_tn[j - 1];
+      my_tid[j] = my_tid[j - 1];
+    }
+    my_tn[j] = t;
+    my_tid[j] = v;
   }
-  ovf_out[i] = max(cnt - r_list, 0);
+
+  // the warp's rows row0 .. row0 + 31 are words row0 * r_list on of both
+  // outputs: lane l writes words l, l + 32, ... (word w: row w / r_list,
+  // slot w % r_list, stepped without a division)
+  __syncwarp();
+  int lane = threadIdx.x & 31;
+  int row0 = i - lane;
+  int words = (min(n - row0, 32)) * r_list;
+  const int* warp_tid = lists + (threadIdx.x - lane) * stride;
+  const float* warp_tn = reinterpret_cast<const float*>(
+      lists + (BIN_THREADS + threadIdx.x - lane) * stride);
+  int* tid_rows = tid_out + (size_t)row0 * r_list;
+  float* tn_rows = tn_out + (size_t)row0 * r_list;
+  int step_r = 32 / r_list, step_k = 32 % r_list;
+  int r = lane / r_list, k = lane % r_list;
+  for (int w = lane; w < words; w += 32) {
+    tid_rows[w] = warp_tid[r * stride + k];
+    tn_rows[w] = warp_tn[r * stride + k];
+    r += step_r;
+    k += step_k;
+    if (k >= r_list) {
+      k -= r_list;
+      r++;
+    }
+  }
 }
 
 struct PairArgs {
@@ -312,11 +366,39 @@ int resident_blocks(int threads) {
   return n;
 }
 
+// Carves out of each SM's L1 / shared memory for bin_rays_kernel the shared
+// memory that the blocks of one wave of `blocks` blocks of `shared` bytes
+// take there, and no more, so that the rest stays L1, where the top rows
+// and the walks' stacks live: with the runtime's own choice, which favours
+// the most blocks an SM could hold, the kernel was 9-14 % slower (PERF.md).
+// Set once per card and carve-out. Returns the CUDA error.
+int set_bin_rays_carveout(int blocks, size_t shared) {
+  constexpr int kMaxDevices = 64;
+  static int last[kMaxDevices];  // percent set + 1; 0: not set yet
+  int dev = 0, sms = 1, per_sm = 1, reserved = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                         dev);
+  cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock,
+                         dev);
+  size_t wave = (size_t)((blocks + sms - 1) / sms) * (shared + reserved);
+  size_t want = (wave * 100 + per_sm - 1) / per_sm;
+  int percent = want < 100 ? (int)want : 100;
+  if (dev < kMaxDevices && last[dev] == percent + 1) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      bin_rays_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      percent);
+  if (err == cudaSuccess && dev < kMaxDevices) last[dev] = percent + 1;
+  return (int)err;
+}
+
 }  // namespace
 
 // Launches on `stream`, does not synchronise, allocates nothing. All arrays
 // are contiguous device memory: top_nodes (Ntop,64) f32, o/d (N,3) f32, tmax
-// (N,) f32; outputs tid (N,r_list) i32, tnear (N,r_list) f32, ovf (N,) i32.
+// (N,) f32; outputs tid (N,r_list) i32, tnear (N,r_list) f32 (each row's kept
+// records in (entry t, walk order), then empty ones: -1, 3e38), ovf (N,) i32.
 // `deepest` is one int that receives the deepest stack any ray asked for
 // when that exceeds WIDE_STACK. Returns cudaGetLastError().
 extern "C" int tpupt_bin_rays(const void* top_nodes, const void* o,
@@ -324,10 +406,18 @@ extern "C" int tpupt_bin_rays(const void* top_nodes, const void* o,
                               int r_list, void* tid_out, void* tn_out,
                               void* ovf_out, void* deepest, void* stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  bin_rays_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float4*)top_nodes, (const float*)o, (const float*)d,
+  const int blocks = (n + BIN_THREADS - 1) / BIN_THREADS;
+  const size_t shared = sizeof(int) * 2 * BIN_THREADS * (r_list | 1);
+  if (shared > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        bin_rays_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)shared);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int err = set_bin_rays_carveout(blocks, shared);
+  if (err != 0) return err;
+  bin_rays_kernel<<<blocks, BIN_THREADS, shared, (cudaStream_t)stream>>>(
+      (const float*)top_nodes, (const float*)o, (const float*)d,
       (const float*)tmax, n, r_list, (int*)tid_out, (float*)tn_out,
       (int*)ovf_out, (int*)deepest);
   return (int)cudaGetLastError();

@@ -164,7 +164,10 @@ def miss_radiance_and_pdf(ds, st, d):
 def pick_traversal(st: SceneStatics, alt: bool = False):
     """The traversal wrapper for these tables: with `alt` the kd / RBSP / BSP
     tree goes through the kd/BSP kernel; else two-level BVH tables go through
-    the treelet kernel, single-level ones through the wide-BVH kernel."""
+    the treelet kernel, single-level ones through the wide-BVH kernel. Each
+    takes `with_stats` (path_li hands it the Renderer's `collect_stats`):
+    its kernel counts only with it, its plain walker, which CPU tensors
+    take, always counts, as the JAX package's XLA walkers do."""
     if alt:
         kdbsp.check_tree(st)
         return traverse_kdbsp.intersect_kdbsp_cuda
@@ -175,7 +178,8 @@ def pick_traversal(st: SceneStatics, alt: bool = False):
 
 def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
             max_depth: int, rr_threshold: float,
-            px, py, sample_idx, o, d, isect=None, tables=None):
+            px, py, sample_idx, o, d, isect=None, tables=None,
+            with_stats: bool = True):
     """Trace one batch of camera rays to completion.
 
     Vertex-count semantics match path.cpp: the bounce loop visits maxDepth
@@ -183,8 +187,9 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
     `if (bounces >= maxDepth) break` sits after the emission block), each
     with one closest-hit and one any-hit traversal.
 
-    `isect(ds, st, o, d, tmax, any_hit=False)` -> (Hit, TraversalStats);
-    default `pick_traversal(st)`. Returns (L (N,3), aov (N,4))."""
+    `isect(ds, st, o, d, tmax, any_hit=False, with_stats=True)` -> (Hit,
+    TraversalStats), called with `with_stats`; default `pick_traversal(st)`.
+    Returns (L (N,3), aov (N,4))."""
     if isect is None:
         isect = pick_traversal(st)
     if tables is None:
@@ -196,7 +201,8 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
         # lights through the shading chain only
         hit, stats = isect(ds, st, o_.detach().contiguous(),
                            d_.detach().contiguous(),
-                           tmax_.detach().contiguous(), any_hit=any_hit)
+                           tmax_.detach().contiguous(), any_hit=any_hit,
+                           with_stats=with_stats)
         return hit, stats
 
     n = o.shape[0]
@@ -398,10 +404,17 @@ class Renderer:
     builders unless `tables` already carry one. `accel_stats` describes the
     tree; `accel_nodes` / `accel_dirs` hold a tree built here as numpy
     arrays for `accel.kdbsp.dump_tree` and `node_type_depth_maps`. A tree too
-    deep for the traversal stack raises."""
+    deep for the traversal stack raises.
+
+    `isect(ds, st, o, d, tmax, any_hit=False, with_stats=True)` replaces the
+    traversal `pick_traversal` picks. collect_stats (False by default, as in
+    the JAX package) is handed to the traversal's `with_stats`: without it
+    the kernels leave the per-ray counters (the node-visit, leaf-visit and
+    prim-test AOVs) out; the images are the same either way."""
 
     def __init__(self, scene: FlatScene, device="cuda",
-                 light_strategy: str = None, tables=None, isect=None):
+                 light_strategy: str = None, tables=None, isect=None,
+                 collect_stats: bool = False):
         if scene.integrator.name != "path":
             raise NotImplementedError(
                 f"integrator {scene.integrator.name!r} is not in the PyTorch "
@@ -424,6 +437,7 @@ class Renderer:
             scene.sampler.spp, scene.sampler.seed)
         self.cfg = scene.film
         self._isect = isect or pick_traversal(self.st, alt)
+        self.collect_stats = collect_stats
         self._shade_tables = (tri_shade_table(self.ds),
                               sph_shade_table(self.ds))
 
@@ -475,7 +489,8 @@ class Renderer:
         L, aov = path_li(ds, self.st, sampler, scene.integrator.max_depth,
                          scene.integrator.rr_threshold, px_b, py_b,
                          sample_idx, o, d, isect=self._isect,
-                         tables=self._shade_tables)
+                         tables=self._shade_tables,
+                         with_stats=self.collect_stats)
         # NaN/inf clamping to black (integrator.cpp:300-321): the reference
         # kills samples with NEGATIVE LUMINANCE (y < -1e-5), not per-channel
         # negatives

@@ -6,7 +6,8 @@ JAX package's answer for incoherent bounce rays over large scenes
 (tpupt/ops/traverse_requeue.py `intersect_packets_requeue`):
 
 1. `bin_rays_cuda` walks each ray through the top tree and lists up to
-   `r_list` treelets it enters, with their entry t (kernel `bin_rays`);
+   `r_list` treelets it enters, with their entry t, ordered by (entry t,
+   walk order) (kernel `bin_rays`);
 2. the driver builds a key treelet * 8 + direction octant for each live
    (ray, treelet) pair and sorts the pairs by it (stably, live pairs
    first), so that neighbouring threads walk the same treelet, and counts
@@ -20,19 +21,22 @@ JAX package's answer for incoherent bounce rays over large scenes
    pairs, among equal t the first pair in sorted order, and a later pass
    replaces a hit only with a strictly smaller t (`accel.traverse.RayBest`);
    it adds each pair's counters to its ray's. Pass 0 walks each ray's
-   nearest `wave0` treelets, pass 1 every other pair whose entry t is below
-   the ray's best t by then; between the passes the driver reads t (and,
-   for any hit, whether there is a hit) back from the words;
+   nearest `wave0` treelets, the list columns [0, wave0), pass 1 the pairs
+   of the columns [wave0, r_list) whose entry t is below the ray's best t
+   by then; between the passes the driver reads t (and, for any hit,
+   whether there is a hit) back from the words;
 4. a ray whose list overflowed (and, for any hit, is still unoccluded)
    takes its whole hit from the two-level kernel (ops/traverse_treelets.py),
    which is launched with tmax 0 on every other ray; its counters stay
    those of the pairs walked before.
 
-The nearest `wave0` records of a list are picked by rank (fewer than
-`wave0` records of the ray lie before it in (entry t, slot) order), not by
-sorting the list: a ray lists each treelet once (each treelet has one
-reference in the top tree), so no two of its pairs share a key, and the
-sorted pair order is the same whatever order the list is in.
+Each pass builds and sorts only the keys of its own columns: N * wave0
+in pass 0, N * (r_list - wave0) in pass 1. A ray lists each treelet once
+(each treelet has one reference in the top tree), so no two of its pairs
+share a key, and a stable sort puts the live pairs of a pass in (key, ray)
+order whatever columns they came from: in the same order, at the same
+slots pass * N * r_list + sorted index, as a sort of all N * r_list slots
+of the lists would.
 
 The JAX package runs a third pass for pairs that a 1024-lane chunk had to
 defer (at most 16 treelets a chunk). A lane a pair defers nothing, so
@@ -126,8 +130,10 @@ def _require_two_level(st):
 
 def bin_rays_cuda(ds, st, o, d, tmax, r_list: int = R_LIST, lib=None):
     """(tid (N, r_list) i32, tnear (N, r_list) f32, ovf (N,) i32) of rays o,
-    d (N,3) float32, tmax (N,) float32, all contiguous on one device: each
-    ray's treelets in top-tree walk order (see accel.traverse.bin_rays).
+    d (N,3) float32, tmax (N,) float32, all contiguous on one device: the
+    first r_list treelets of each ray's top-tree walk (the rest only
+    counted in ovf), ordered by (entry t, walk order), empty records last
+    (see accel.traverse.bin_rays).
 
     CUDA tensors: launches kernel `bin_rays` on the current stream (no
     synchronise) or raises. CPU tensors: the plain `bin_rays`. `lib`
@@ -226,47 +232,21 @@ def _octants(d):
             + 4 * (d[:, 2] < 0).to(i32))
 
 
-def first_wave(tnear, wave0: int):
-    """(N, R) bool: the records of each list that a stable sort by entry t
-    would put in its first `wave0` places, those with fewer than `wave0`
-    records of the ray before them in (entry t, slot) order: the ones at or
-    below the wave0-th smallest key (bits of entry t) * R + slot, found by
-    taking the smallest key out wave0 - 1 times (a key is unique in its
-    row). Entry t is never negative (empty records: 3e38), so its bits order
-    like it."""
-    r_list = tnear.shape[1]
-    if wave0 >= r_list:
-        return torch.ones(tnear.shape, dtype=torch.bool, device=tnear.device)
-    slot = torch.arange(r_list, device=tnear.device)
-    bits = tnear.contiguous().view(torch.int32).to(torch.int64)
-    order = bits * r_list + slot
-    rest = order
-    for _ in range(wave0 - 1):
-        rest = torch.where(rest == rest.amin(1, keepdim=True),
-                           torch.iinfo(torch.int64).max, rest)
-    return order <= rest.amin(1, keepdim=True)
-
-
-def _pass_pairs(st, tid, tnear, octant, t_best, hit, walked, wave,
-                any_hit: bool):
-    """The pairs of one pass: every unwalked record (in `wave`, unless that
-    is None) with a treelet whose entry t is below the ray's best t (for any
-    hit only on rays without a hit). Returns (key, ray, live, work): key
-    (N * R,) i32 sorted by treelet * 8 + octant (the rest carry the sentinel
-    and come last), ray (N * R,) i32 each sorted pair's ray, live (N, R)
-    bool, work (2,) i32 the number of live pairs and 0, all on the card."""
-    n, r_list = tid.shape
+def _pass_pairs(st, tid, tnear, octant, t_best, hit, any_hit: bool):
+    """The pairs of one pass over the list columns `tid`, `tnear` (N, C):
+    every record with a treelet whose entry t is below the ray's best t (for
+    any hit only on rays without a hit). Returns (key, ray, work): key
+    (N * C,) i32 sorted by treelet * 8 + octant (the rest carry the
+    sentinel and come last), ray (N * C,) i32 each sorted pair's ray, work
+    (2,) i32 the number of live pairs and 0, all on the card."""
+    cols = tid.shape[1]
     live = (tid >= 0) & (tnear < t_best[:, None])
-    if walked is not None:
-        live = live & ~walked
-    if wave is not None:
-        live = live & wave
     if any_hit and hit is not None:
         live = live & ~hit[:, None]
     key = torch.where(live, tid * 8 + octant[:, None],
                       trav.pair_sentinel(st)).reshape(-1)
     key, perm = torch.sort(key, stable=True)
-    return key, (perm // r_list).to(torch.int32), live, trav.pair_work(live)
+    return key, (perm // cols).to(torch.int32), trav.pair_work(live)
 
 
 def intersect_requeue(ds, st, o, d, tmax, any_hit: bool = False,
@@ -301,20 +281,22 @@ def _requeue(bin_fn, walk, fallback, ds, st, o, d, tmax, any_hit: bool = False,
     p = tid.numel()
     best = trav.new_ray_best(tmax, 2 * p)
     t_best, hit = tmax, None
-    walked = None
-    for k, wave in enumerate((first_wave(tnear, wave0), None)):
-        key, ray, live, work = _pass_pairs(st, tid, tnear, octant, t_best,
-                                           hit, walked, wave, any_hit)
+    # the lists are in entry t order: pass 0 takes each ray's nearest wave0
+    # records, pass 1 the rest (no columns when wave0 = r_list)
+    walked = 0
+    for k, cols in enumerate((slice(0, wave0), slice(wave0, r_list))):
+        key, ray, work = _pass_pairs(st, tid[:, cols], tnear[:, cols],
+                                     octant, t_best, hit, any_hit)
         walk(ds, st, o, d, key, ray, work, t_best, best, k * p,
              any_hit=any_hit, with_stats=with_stats)
         t_best, hit = trav.best_t(best)
-        walked = live if walked is None else walked | live
+        walked = cols.stop
     t_best, gid, ridx, b1, b2 = trav.best_hit(best)
 
     # pairs still live after the last pass: none by construction (every
     # live pair of pass 1 is walked), counted as the JAX package counts them
-    rem = ((~walked) & (tid >= 0) & (tnear < t_best[:, None])).sum(
-        1, dtype=torch.int32)
+    rem = ((tid[:, walked:] >= 0) & (tnear[:, walked:] < t_best[:, None])
+           ).sum(1, dtype=torch.int32)
     if any_hit:
         rem = torch.where(gid >= 0, 0, rem)
 

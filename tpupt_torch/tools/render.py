@@ -12,7 +12,9 @@ fails when there is none: it never drops to the CPU by itself.
 kd / RBSP / BSP tree next to the image (GenericBSP operator<<, off by default
 like the reference's writeFile). --writestats writes the per-pixel traversal
 counters as text matrices (Film::WriteGeneralStats, film.cpp:170) and, for a
-kd / RBSP / BSP tree, its node-type depth histograms."""
+kd / RBSP / BSP tree, its node-type depth histograms; it also turns the
+traversal's counters on (`Renderer(collect_stats=True)`), which the kernels
+otherwise leave out."""
 
 from __future__ import annotations
 
@@ -88,7 +90,8 @@ def main(argv=None) -> int:
         w, h = (int(v) for v in args.resolution.lower().split("x"))
         scene = with_resolution(scene, w, h)
     t0 = time.time()
-    renderer = Renderer(scene, device="cpu" if args.cpu else "cuda")
+    renderer = Renderer(scene, device="cpu" if args.cpu else "cuda",
+                        collect_stats=args.writestats)
     t1 = time.time()
     film = renderer.render(spp=args.spp)
     img = renderer.image(film)
