@@ -31,14 +31,21 @@ re-queue driver's fallback launch too, with its bound; K4 and K5 are held
 against their plain versions inside the driver's own pass loop (K4's lists
 and overflow counts; each ray's packed best hit, the winners' payloads and
 the counters), and K4 also on the dead-heavy, all-dead, one-ray and
-131,073-ray batches, all to the bit. There is no
-fallback: without a CUDA device, without the `tpupt_torch` package beside
-it, with a kernel that does not build, launch or agree, or with any failed
-check, it exits with a code other than 0 and prints no result line.
+131,073-ray batches, all to the bit. Then the `gradients` phase takes
+`Renderer.value_and_grad` of bench.py's loss, sum(film.rgb), with respect to
+`mat_kd`, `mat_ks`, `mat_roughness` and `light_L` on both museums at
+1024x1024 (K1, 2 samples; K3, 1 sample), with the launch counts set to 0
+just before and read just after, each beside the same renderer's forward
+sample and against the same step through the plain version on the middle
+crop, and three `parallel.mesh.train_step_fn` steps on the small museum.
+There is no fallback: without a CUDA device, without the `tpupt_torch`
+package beside it, with a kernel that does not build, launch or agree, or
+with any failed check, it exits with a code other than 0 and prints no
+result line.
 
-Output: one JSON object per phase (`env`, `kernels`, `main_path`), then the
-card's name and power limit, the `{"kernels": [...]}` line, and last
-`{"ok": true, "device": {...}}`.
+Output: one JSON object per phase (`env`, `kernels`, `main_path`,
+`gradients`), then the card's name and power limit, the `{"kernels": [...]}`
+line, and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -68,6 +75,7 @@ from tpupt_torch.ops import traverse_kdbsp as tk
 from tpupt_torch.ops import traverse_requeue as tr
 from tpupt_torch.ops import traverse_treelets as tt
 from tpupt_torch.ops import traverse_wide as tw
+from tpupt_torch.parallel.mesh import train_step_fn
 from tpupt_torch.scene.device import build_scene_bvh, upload, with_alt_accel
 from tpupt_torch.scene.flatten import flatten, with_resolution
 from tpupt_torch.scene.loader import parse_file, parse_string
@@ -86,6 +94,24 @@ SPP_65K = 2
 # the plain walkers render this crop of the image, the kernels too for the
 # comparison: 256x256 pixels in the middle, one batch a sample
 PLAIN_CROP = (0.375, 0.625, 0.375, 0.625)
+# the gradients phase: value_and_grad of bench.py's loss, sum(film.rgb), with
+# respect to the four tables it differentiates, 2 samples on the small museum
+# and 1 on the 1M one; the film is linear in light_L, so
+# sum(light_L * dloss/dlight_L) equals the loss to LINEARITY_RTOL; the
+# gradients through the kernels against those through their plain versions
+# on PLAIN_CROP, per table |g_kernel - g_plain| <= GRAD_VS_PLAIN * max |g_plain|
+# (the hits are equal to the bit; the tables' gathers add their cotangents
+# with atomics, in no fixed order); value_and_grad's film against render's,
+# mean relative difference (3e-11 and 2e-10 on the card: the film's
+# index_add sums with atomics too)
+GRAD_PARAMS = ("mat_kd", "mat_ks", "mat_roughness", "light_L")
+SPP_GRAD_65K, SPP_GRAD_1M = 2, 1
+LINEARITY_RTOL = 1e-4
+GRAD_VS_PLAIN = 1e-5
+FILM_VS_RENDER_REL = 1e-6
+# three SGD steps of train_step_fn toward the small museum rendered with
+# every diffuse albedo halved
+TRAIN_STEPS, TRAIN_LR = 3, 0.5
 # kd-tree, restricted BSP with 3 / 7 / 13 directions, one tree with a
 # direction per node and one with kd nodes mixed in: (name, nbDirections)
 KD_TREES = [("kdtree", None), ("rbsp", 3), ("rbsp", 7), ("rbsp", 13),
@@ -466,6 +492,15 @@ def check_image(renderer, film, tag):
     return finite_share, mean_lum
 
 
+def plain_traversal(kind):
+    """Kernel `kind`'s plain version behind the `isect` interface."""
+    plain_fn = KERNELS[kind]["plain"]
+
+    def plain_isect(ds_, st_, o_, d_, tmax_, any_hit=False, with_stats=True):
+        return plain_fn(ds_, st_, o_, d_, tmax_, any_hit=any_hit)
+    return plain_isect
+
+
 def against_plain_render(scene, tables, kind, dev, isect=None,
                          plain_isect=None):
     """1 spp of the PLAIN_CROP window through the kernel against 1 spp of it
@@ -473,12 +508,7 @@ def against_plain_render(scene, tables, kind, dev, isect=None,
     `plain_isect` replace the renderer's own traversal and kernel `kind`'s
     plain version (for the re-queue driver and its plain mode)."""
     if plain_isect is None:
-        plain_fn = KERNELS[kind]["plain"]
-
-        def plain_isect(ds_, st_, o_, d_, tmax_, any_hit=False,
-                        with_stats=True):
-            return plain_fn(ds_, st_, o_, d_, tmax_, any_hit=any_hit)
-
+        plain_isect = plain_traversal(kind)
     scene = dataclasses.replace(
         scene, film=dataclasses.replace(scene.film, crop=PLAIN_CROP))
     renderer = Renderer(scene, device=dev, tables=tables, isect=isect)
@@ -873,7 +903,8 @@ def main(argv) -> int:
     del k3_hits
     check_stack_depths()
     if with_profile:
-        emit({"phase": "profile", **profile_one_spp(renderer)})
+        emit({"phase": "profile",
+              **profile_one_spp(lambda: renderer.render(spp=1))})
     emit({"phase": "main_path",
           "museum_65k": {
               "triangles": tables65[1].n_tris, "two_level": False,
@@ -908,6 +939,16 @@ def main(argv) -> int:
           "kernels_at_main_shape": shape,
           "kernels_at_main_shape_museum_65k": shape_kd})
 
+    # ---- gradients: value_and_grad through K1 (small museum) and K3 (1M
+    # museum), each against its plain version on the crop; three training
+    # steps on the small museum
+    grads65 = fwd_bwd(sc65, tables65, "traverse_wide", SPP_GRAD_65K, dev)
+    grads1m = fwd_bwd(scene, tables, "traverse_treelets", SPP_GRAD_1M, dev,
+                      with_profile)
+    emit({"phase": "gradients", "params": GRAD_PARAMS,
+          "loss": "sum(film.rgb)", "museum_65k": grads65,
+          "museum_1m": grads1m, "train": train_steps(sc65, tables65, dev)})
+
     kernels = []
     # K1 at the shape where the main path launches it: the 63,558-triangle
     # museum's secondary rays (its 1M-museum figures beside them)
@@ -939,6 +980,9 @@ def main(argv) -> int:
             "rays_per_launch": shapes[kind]["rays"],
             "tolerance": f"valid/prim/counters exact, t/b1/b2 <= {ULP_LIMIT} ulp",
         })
+        for g in (grads65, grads1m):
+            if g["kernel"] == kind:
+                kernels[-1]["fwd_bwd_launches"] = g["launches"][kind]
         if kind == "traverse_wide":
             w1m = shape["traverse_wide"]
             kernels[-1]["at_museum_1m"] = {
@@ -993,6 +1037,141 @@ def main(argv) -> int:
     return 0
 
 
+def bench_loss(film):
+    """bench.py's loss: the sum of the film's weighted radiance."""
+    return film.rgb.sum()
+
+
+def fwd_bwd(scene, tables, kind, spp, dev, with_profile=False) -> dict:
+    """`Renderer.value_and_grad` of `bench_loss` over `spp` samples (one
+    call a sample) at the main path's width, through kernel `kind`, with the
+    launch counts set to 0 just before and read just after; beside it the
+    same renderer's forward sample and the same step over PLAIN_CROP through
+    the kernel and through its plain version. Fails unless every gradient is
+    finite and every table's nonzero, the film is linear in light_L, the
+    kernel launched exactly as often as in the forward samples, and kernel
+    and plain version give the same gradients. `with_profile` adds
+    `profile_one_spp` of one more fwd+bwd sample."""
+    renderer = Renderer(scene, device=dev, tables=tables)
+    params = {k: getattr(renderer.ds, k) for k in GRAD_PARAMS}
+    renderer.render(spp=1)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    film_fwd = renderer.render(spp=1)
+    torch.cuda.synchronize()
+    fwd_ms = (time.time() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    bytes_before = torch.cuda.memory_allocated()
+    zero_launches()
+    step_ms, values, linearity = [], [], []
+    for s in range(spp):
+        t0 = time.time()
+        value, grads, film = renderer.value_and_grad(bench_loss, params, s)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t0) * 1e3)
+        v = float(value)
+        for k, g in grads.items():
+            if not bool(torch.isfinite(g).all()) or not float(g.abs().max()) > 0:
+                fail(f"{kind} gradients: d loss / d {k} is not finite or is 0")
+        lin = float((grads["light_L"] * params["light_L"]).sum())
+        if not abs(lin - v) <= LINEARITY_RTOL * abs(v):
+            fail(f"{kind} gradients: sum(light_L * dloss/dlight_L) = {lin}, "
+                 f"loss {v}")
+        values.append(v)
+        linearity.append(lin)
+        if s == 0:
+            film_rel = float((film.rgb - film_fwd.rgb).abs().mean()
+                             / film_fwd.rgb.abs().mean().clamp_min(1e-30))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    depth = scene.integrator.max_depth
+    want = 2 * (depth + 1) * renderer.n_batches * spp
+    for k, c in counts.items():
+        if c != (want if k == kind else 0):
+            fail(f"value_and_grad through {kind} launched {k} {c} times, "
+                 f"expected {want if k == kind else 0}")
+    if not film_rel <= FILM_VS_RENDER_REL:
+        fail(f"{kind}: value_and_grad's film differs from render's: {film_rel}")
+    ms = sum(step_ms) / spp
+    del film, film_fwd, grads
+    profiled = ({"profile": profile_one_spp(lambda: renderer.value_and_grad(
+        bench_loss, params))} if with_profile else {})
+    return {**profiled, "kernel": kind, "triangles": renderer.st.n_tris,
+            "resolution": [scene.film.xres, scene.film.yres],
+            "max_depth": depth, "spp": spp, "batches": renderer.n_batches,
+            "fwd_bwd_ms_per_spp": ms, "fwd_bwd_ms_each_spp": step_ms,
+            "fwd_bwd_camera_rays_per_s":
+                scene.film.xres * scene.film.yres / (ms * 1e-3),
+            "fwd_ms_per_spp": fwd_ms, "fwd_bwd_over_fwd": ms / fwd_ms,
+            "peak_allocated_bytes": peak,
+            "allocated_bytes_before": bytes_before,
+            "launches": counts, "launches_per_spp": counts[kind] // spp,
+            "loss": values, "sum_light_L_times_grad": linearity,
+            "linearity_rtol": LINEARITY_RTOL,
+            "film_mean_rel_to_render": film_rel,
+            **grads_against_plain(scene, tables, kind, dev)}
+
+
+def grads_against_plain(scene, tables, kind, dev) -> dict:
+    """value_and_grad of `bench_loss` over PLAIN_CROP through kernel `kind`
+    and through its plain version, on the same tables: per table the largest
+    difference over the largest gradient."""
+    scene = dataclasses.replace(
+        scene, film=dataclasses.replace(scene.film, crop=PLAIN_CROP))
+    out = {}
+    for name, isect in (("kernel", None), ("plain", plain_traversal(kind))):
+        r = Renderer(scene, device=dev, tables=tables, isect=isect)
+        params = {k: getattr(r.ds, k) for k in GRAD_PARAMS}
+        before = launch_counts()[kind]
+        t0 = time.time()
+        out[name] = r.value_and_grad(bench_loss, params)
+        torch.cuda.synchronize()
+        out[name + "_s"] = time.time() - t0
+        ran = launch_counts()[kind] != before
+        if ran != (name == "kernel"):
+            fail(f"the cropped value_and_grad through the {name} of {kind} "
+                 f"launched {kind}: {ran}")
+    (vk, gk, _), (vp, gp, _) = out["kernel"], out["plain"]
+    rel = {k: float((gk[k] - gp[k]).abs().max()
+                    / gp[k].abs().max().clamp_min(1e-30)) for k in gp}
+    if not max(rel.values()) <= GRAD_VS_PLAIN:
+        fail(f"{kind}: gradients through the kernel differ from those through "
+             f"its plain version: {rel}")
+    return {"crop": PLAIN_CROP, "crop_loss_kernel": float(vk),
+            "crop_loss_plain": float(vp),
+            "crop_grad_max_rel_kernel_vs_plain": rel,
+            "crop_grad_rel_bound": GRAD_VS_PLAIN,
+            "crop_plain_fwd_bwd_s": round(out["plain_s"], 1)}
+
+
+def train_steps(scene, tables, dev) -> dict:
+    """TRAIN_STEPS steps of `train_step_fn` with respect to GRAD_PARAMS
+    toward the scene rendered (1 spp) with every diffuse albedo halved; fails
+    unless every loss is finite and the last is below the first."""
+    ds, st = tables
+    target_r = Renderer(scene, device=dev,
+                        tables=(ds._replace(mat_kd=ds.mat_kd * 0.5), st))
+    target = target_r.image(target_r.render(spp=1))
+    del target_r
+    step, params0 = train_step_fn(scene, None, target, device=dev,
+                                  tables=tables)
+    params = {k: params0[k] for k in GRAD_PARAMS}
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.time()
+        loss, params = step(params, 0, TRAIN_LR)
+        losses.append(float(loss))
+        ms.append((time.time() - t0) * 1e3)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"training did not lower the loss: {losses}")
+    return {"triangles": st.n_tris, "resolution": [scene.film.xres,
+                                                   scene.film.yres],
+            "params": GRAD_PARAMS, "lr": TRAIN_LR, "target": "mat_kd * 0.5",
+            "loss_each_step": losses, "ms_each_step": ms,
+            "mat_kd_after": params["mat_kd"].cpu().tolist()}
+
+
 def device_rows(prof):
     """(kernel name, device ms, launches) of a torch.profiler run, longest
     first. Kernel rows only: the profiler also credits each kernel's time to
@@ -1034,16 +1213,17 @@ def profile_call(fn):
                           for r in rows[:12]]}
 
 
-def profile_one_spp(renderer):
-    """Device time by kernel name over one sample of the 1M museum, from
-    torch.profiler: what share the traversal kernel has, and how much of the
-    wall time the device is busy at all."""
+def profile_one_spp(run):
+    """Device time by kernel name over `run()`, one sample of the 1M museum
+    (a forward one or a fwd+bwd one), from torch.profiler: what share the
+    traversal kernel has, and how much of the wall time the device is busy
+    at all."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        renderer.render(spp=1)
+        run()
         torch.cuda.synchronize()
     wall_ms = (time.time() - t0) * 1e3
     rows = device_rows(prof)

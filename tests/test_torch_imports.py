@@ -84,6 +84,26 @@ def test_the_requeue_modules_are_among_them():
     assert os.path.exists(os.path.join(ROOT, "tpupt_torch/csrc/traverse_requeue.cu"))
 
 
+def test_the_gradient_modules_are_among_them():
+    """The differentiable render: the hit recorder and the one-device
+    training step import without a card and without jax or tpupt."""
+    names = set(_module_names())
+    assert {"tpupt_torch.integrators.replay",
+            "tpupt_torch.parallel.mesh"} <= names
+    code = (
+        "import sys\n"
+        "from tpupt_torch.parallel.mesh import PARAMS, train_step_fn\n"
+        "from tpupt_torch.integrators.path import Renderer\n"
+        "assert hasattr(Renderer, 'value_and_grad') and len(PARAMS) == 6\n"
+        "print('JAX', any(m.split('.')[0] in ('jax', 'jaxlib', 'tpupt') "
+        "for m in sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "JAX False" in out.stdout
+
+
 def _imported_roots(path):
     roots = set()
     for node in ast.walk(ast.parse(open(path).read())):

@@ -1,0 +1,111 @@
+"""Film-level gradients and the training step of the PyTorch port against
+the JAX package's, on the same tables and sampler: `Renderer.value_and_grad`
+against `jax.value_and_grad` of the JAX package's film step, and one step
+of `parallel.mesh.train_step_fn` against its `train_step_fn` on a
+one-device CPU mesh. The JAX side runs eagerly, as in
+test_torch_gradients.py (whose helpers and tolerances this file shares):
+the film-level gradients differ from `jax.grad`'s by at most 3.5e-6 of the
+largest absolute gradient of each table, the training step's update,
+compared as (p - p_new) / lr, by at most 4.2e-6; both are held to 1e-4."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpupt.film.film import new_film as jax_new_film
+from tpupt.integrators.path import path_li as jax_path_li
+from tpupt.parallel import mesh as jax_mesh
+from tpupt_torch.integrators.path import Renderer
+from tpupt_torch.parallel.mesh import PARAMS, train_step_fn
+
+from test_torch_gradients import (BENCH, _close_grads, _jax_walkers, _pair,
+                                  _params)
+
+# one intra-op thread: the tier-1 run puts six test processes on the
+# machine's cores, and more threads a process only make them compete
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("loss", ["sum", "weighted"])
+def test_film_gradients_match_jax(loss, tmp_path):
+    """`Renderer.value_and_grad` at 1 spp against `jax.value_and_grad` of
+    the same loss of the JAX package's film step. "sum": the bench's loss,
+    sum(film.rgb), with respect to its four tables, on a 16x16 museum (the
+    camera matrices' gradient there is carried by lanes of radiance about
+    1e-14, grazing samples of its area light where a last-bit difference
+    flips a threshold, so both packages' are noise). "weighted": a fixed
+    random weighting of the pixels, with respect to all six tables, on the
+    dry-run scene at 32x32. The film is linear in light_L (its pdfs and
+    light grid are upload-time constants), so sum(light_L * dloss/dlight_L)
+    equals the loss."""
+    sj, rj, sp, rt = _pair("museum" if loss == "sum" else "dryrun", tmp_path)
+    rj._isect, rj._isect_p = _jax_walkers(rj.st)
+    rj._unroll = True
+    names = BENCH if loss == "sum" else PARAMS
+    w = np.random.default_rng(3).uniform(
+        0.2, 1.0, (sj.film.xres * sj.film.yres, 3)).astype(np.float32)
+    if loss == "sum":
+        w[:] = 1.0
+
+    def jax_loss(params):
+        ds = rj.ds._replace(**params)
+        f = jax_new_film(sj.film.xres, sj.film.yres)
+        for i in range(rj.n_batches):
+            f = rj._step_py(ds, f, jnp.uint32(0), rj._px_b[i], rj._py_b[i],
+                            rj._valid_b[i])
+        return jnp.sum(jnp.asarray(w) * f.rgb)
+
+    vj, gj = jax.value_and_grad(jax_loss)(_params(rj.ds, names))
+    wt = torch.from_numpy(w)
+    vt, gt, film = rt.value_and_grad(lambda f: torch.sum(wt * f.rgb),
+                                     _params(rt.ds, names))
+    np.testing.assert_allclose(float(vt), float(vj), rtol=1e-5)
+    _close_grads(gt, gj, f"film, {loss}")
+    for k in names:
+        assert float(gt[k].abs().max()) > 0.0, k
+    lin = float((gt["light_L"] * rt.ds.light_L).sum())
+    np.testing.assert_allclose(lin, float(vt), rtol=1e-4)
+
+
+def _kd_target(sp, rt):
+    """The image of the scene with every diffuse albedo halved, 1 spp."""
+    ds = rt.ds._replace(mat_kd=rt.ds.mat_kd * 0.5)
+    r = Renderer(sp, device="cpu", tables=(ds, rt.st))
+    return r.image(r.render(spp=1))
+
+
+def test_train_step_matches_jax_and_lowers_the_loss(monkeypatch):
+    """One step of the port's train_step_fn against the JAX package's on a
+    one-device CPU mesh (its walkers jitted, its bounce loop unrolled), same
+    loss and same updated tables; then three steps of the port lower the
+    loss."""
+    sj, rj, sp, rt = _pair("two_materials")
+    target = _kd_target(sp, rt)
+    tables = (rt.ds, rt.st)
+    step, p0 = train_step_fn(sp, None, target, device="cpu", tables=tables)
+    lr = 1e-3
+    loss_t, new_t = step(p0, 0, lr)
+
+    monkeypatch.setattr(jax_mesh, "pick_traversal", _jax_walkers)
+    monkeypatch.setattr(jax_mesh, "path_li",
+                        functools.partial(jax_path_li, unroll=True))
+    jstep, jp0, (px, py, valid) = jax_mesh.train_step_fn(
+        sj, jax_mesh.make_mesh(jax.devices()[:1]), target)
+    jp0 = {k: jp0[k] for k in PARAMS}
+    loss_j, new_j = jstep.__wrapped__(jp0, jnp.uint32(0), px, py, valid, lr)
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-5)
+    # the update: p0 - lr * g; compare the steps lr * g themselves
+    _close_grads({k: (p0[k] - new_t[k]) / lr for k in PARAMS},
+                 {k: (np.asarray(jp0[k]) - np.asarray(new_j[k])) / lr
+                  for k in PARAMS}, "train step")
+
+    params = {k: p0[k] for k in BENCH}
+    losses = []
+    for _ in range(3):
+        loss, params = step(params, 0, 0.5)
+        losses.append(float(loss))
+    assert losses[2] < losses[0], losses

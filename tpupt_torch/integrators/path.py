@@ -36,12 +36,14 @@ import numpy as np
 import torch
 
 from tpupt_torch.accel import kdbsp
+from tpupt_torch.accel import traverse as trav
 from tpupt_torch.cameras.perspective import generate_rays
 from tpupt_torch.core.sampling import power_heuristic
 from tpupt_torch.core.spectrum import luminance
 from tpupt_torch.core.vecmath import (absdot, cross, dot, normalize,
                                       offset_ray_origin)
 from tpupt_torch.film import film as filmmod
+from tpupt_torch.integrators.replay import HitRecorder
 from tpupt_torch.lights.lights import emitted_radiance, pdf_li, sample_li
 from tpupt_torch.materials import bsdf as bx
 from tpupt_torch.ops import traverse_kdbsp, traverse_treelets, traverse_wide
@@ -194,16 +196,19 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
         isect = pick_traversal(st)
     if tables is None:
         tables = (tri_shade_table(ds), sph_shade_table(ds))
+    # traversal is non-differentiable (integer hit ids): its inputs, the
+    # tables it reads among them, and its hit record are detached, so
+    # cotangents reach materials, lights and the camera through the shading
+    # chain only (the detached-sampling estimator)
+    ds_trav = ds._replace(**{k: v.detach() for k, v in ds._asdict().items()
+                             if isinstance(v, torch.Tensor) and v.requires_grad})
 
     def intersect(o_, d_, tmax_, any_hit=False):
-        # traversal is non-differentiable (integer hit ids): its inputs and
-        # its hit record are detached, so cotangents reach materials and
-        # lights through the shading chain only
-        hit, stats = isect(ds, st, o_.detach().contiguous(),
+        hit, stats = isect(ds_trav, st, o_.detach().contiguous(),
                            d_.detach().contiguous(),
                            tmax_.detach().contiguous(), any_hit=any_hit,
                            with_stats=with_stats)
-        return hit, stats
+        return trav.Hit(*(x.detach() for x in hit)), stats
 
     n = o.shape[0]
     dev = o.device
@@ -474,10 +479,12 @@ class Renderer:
         self.accel_stats = {"kind": accel, **astats}
         self.accel_nodes, self.accel_dirs = nodes, dirs
 
-    def _step(self, film, sample_idx, px_b, py_b, valid_b):
-        """One batch of one sample: camera rays -> path_li -> film."""
-        scene, cam, ds = self.scene, self.scene.camera, self.ds
-        sampler = self.sampler
+    def _radiance(self, ds, sample_idx, b, isect=None, tables=None,
+                  with_stats=None):
+        """(p_raster, L, aov) of batch `b`: camera rays, from the camera
+        matrices of `ds` (differentiable with respect to them) -> path_li."""
+        cam, sampler = self.scene.camera, self.sampler
+        px_b, py_b = self._px_b[b], self._py_b[b]
         jx, jy = sampler.camera_jitter(px_b, py_b, sample_idx)
         p_raster = torch.stack([px_b.to(torch.float32) + jx,
                                 py_b.to(torch.float32) + jy], -1)
@@ -486,11 +493,19 @@ class Renderer:
         o, d = generate_rays(cam.type, ds.raster_to_camera, ds.cam_to_world,
                              p_raster, torch.stack([ul1, ul2], -1),
                              cam.lens_radius, cam.focal_distance)
-        L, aov = path_li(ds, self.st, sampler, scene.integrator.max_depth,
-                         scene.integrator.rr_threshold, px_b, py_b,
-                         sample_idx, o, d, isect=self._isect,
-                         tables=self._shade_tables,
-                         with_stats=self.collect_stats)
+        integ = self.scene.integrator
+        L, aov = path_li(
+            ds, self.st, sampler, integ.max_depth, integ.rr_threshold,
+            px_b, py_b, sample_idx, o, d, isect=isect or self._isect,
+            tables=tables or self._shade_tables,
+            with_stats=self.collect_stats if with_stats is None else with_stats)
+        return p_raster, L, aov
+
+    def _step(self, film, sample_idx, b, ds=None, **kw):
+        """One batch of one sample: camera rays -> path_li -> film. `ds`
+        replaces the renderer's tables, `kw` goes to `_radiance`."""
+        p_raster, L, aov = self._radiance(
+            self.ds if ds is None else ds, sample_idx, b, **kw)
         # NaN/inf clamping to black (integrator.cpp:300-321): the reference
         # kills samples with NEGATIVE LUMINANCE (y < -1e-5), not per-channel
         # negatives
@@ -503,15 +518,74 @@ class Renderer:
                             1.0)
             L = L * s[..., None]
         return filmmod.add_samples(film, self.cfg, p_raster, L, aov,
-                                   mask=valid_b)
+                                   mask=self._valid_b[b])
 
     @torch.no_grad()
     def _spp(self, film, sample_idx: int):
         """One full sample over every batch."""
         for b in range(self.n_batches):
-            film = self._step(film, int(sample_idx), self._px_b[b],
-                              self._py_b[b], self._valid_b[b])
+            film = self._step(film, int(sample_idx), b)
         return film
+
+    def value_and_grad(self, loss, params: dict, sample_idx: int = 0):
+        """(value, grads, film): `loss` of the film of one full sample (every
+        batch) and its gradients with respect to `params`, the counterpart of
+        `jax.value_and_grad(loss)` over the JAX package's film step.
+
+        `params` maps DeviceScene field names (`mat_kd`, `mat_ks`,
+        `mat_roughness`, `light_L`, `raster_to_camera`, `cam_to_world`, ...)
+        to tensors that replace the renderer's tables; `grads` maps the same
+        names to tensors of the same shapes. `loss(film) -> scalar tensor`
+        reads the `Film` (`sum(film.rgb)` is what the bench differentiates);
+        the gradients reach it through `film.rgb`. `film` is the sample's
+        film, the same as `render` gives for this sample.
+
+        Traversal is detached (the detached-sampling estimator). Pass 1
+        renders every batch without autograd and with the counters off,
+        recording each traversal's hits (integrators/replay.py), and takes
+        `dloss/dfilm.rgb` on the film alone. Pass 2 replays each batch's
+        shading chain with autograd on, over the recorded hits, and
+        back-propagates the film cotangent; each batch's graph is freed
+        before the next is built. So the traversal kernels launch as often as
+        in a forward sample, and memory holds one batch's graph and the
+        recorded hits (about 30 B a ray a traversal)."""
+        unknown = sorted(set(params) - set(DeviceScene._fields))
+        if unknown:
+            raise KeyError(f"not fields of DeviceScene: {unknown}")
+        sample_idx = int(sample_idx)
+        leaves = {k: v.detach().to(self.device).requires_grad_()
+                  for k, v in params.items()}
+        fixed = self.ds._replace(**{k: v.detach() for k, v in leaves.items()})
+        rec = HitRecorder(self._isect)
+        with torch.no_grad():
+            tables = (tri_shade_table(fixed), sph_shade_table(fixed))
+            film = self.new_film()
+            for b in range(self.n_batches):
+                film = self._step(film, sample_idx, b, ds=fixed,
+                                  isect=rec.record, tables=tables,
+                                  with_stats=False)
+        rgb = film.rgb.detach().requires_grad_()
+        with torch.enable_grad():
+            value = loss(film._replace(rgb=rgb))
+            g_rgb = (torch.autograd.grad(value, rgb, allow_unused=True)[0]
+                     if value.requires_grad else None)
+        if g_rgb is not None:
+            replay = rec.replay()
+            ds = self.ds._replace(**leaves)
+            with torch.enable_grad():
+                tables = (tri_shade_table(ds), sph_shade_table(ds))
+                for b in range(self.n_batches):
+                    fb = self._step(self.new_film(), sample_idx, b, ds=ds,
+                                    isect=replay, tables=tables,
+                                    with_stats=False)
+                    if fb.rgb.requires_grad:
+                        torch.autograd.backward(fb.rgb, g_rgb,
+                                                inputs=list(leaves.values()))
+                    del fb
+            replay.finish()
+        grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
+                 for k, v in leaves.items()}
+        return value.detach(), grads, film
 
     def new_film(self):
         return filmmod.new_film(self.cfg.xres, self.cfg.yres, self.device)

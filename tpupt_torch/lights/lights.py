@@ -56,7 +56,7 @@ def _sphere_center_radius(ds, sid):
 def sample_li(ds, st, light_id, p, u1, u2):
     """Sample one light toward shading points p (N,3). light_id (N,) i32."""
     lid = light_id.long()
-    lL = ds.light_L[lid]
+    lL = torch.index_select(ds.light_L, 0, lid)   # see gather_mat_params
     lpos = ds.light_pos[lid]
     ldir = ds.light_dir[lid]
     ct = ds.light_cos_total[lid]
@@ -191,7 +191,7 @@ def emitted_radiance(ds, st, hit_prim, hit_light, wo_world, ns):
     """Le of an emissive prim toward wo (DiffuseAreaLight::L, diffuse.cpp:49):
     L if the outgoing direction is on the emitting side (or twosided)."""
     lid = hit_light.clamp(0, max(st.n_lights - 1, 0))
-    L = ds.light_L[lid.long()]
+    L = torch.index_select(ds.light_L, 0, lid.long())
     two = ds.light_twosided[lid.long()]
     emit = (hit_light >= 0) & (two | (dot(ns, wo_world) > 0.0))
     return torch.where(emit[..., None], L, 0.0)

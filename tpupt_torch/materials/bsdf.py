@@ -89,7 +89,11 @@ def gather_mat_params(ds, mat_id, uv=None):
          ds.mat_vrough[:, None], ds.mat_sigma[:, None],
          mrow_ints.view(torch.float32),
          ds.mat_extra], dim=1)
-    mrow = mtab[mat_id.long()]
+    # index_select, not mtab[idx]: the same rows, but its backward adds the
+    # rows' cotangents with atomics, where indexing's sorts the indices and
+    # sums each one's duplicates serially (a few materials, 131,072 lanes:
+    # about 50 ms a gather on the H100)
+    mrow = torch.index_select(mtab, 0, mat_id.long())
     m_kd, m_ks = mrow[:, 0:3], mrow[:, 3:6]
     m_kr, m_kt = mrow[:, 6:9], mrow[:, 9:12]
     m_eta, m_k = mrow[:, 12:15], mrow[:, 15:18]
@@ -178,9 +182,12 @@ def fr_conductor(cos_i, eta, k):
     eta2 = eta * eta
     k2 = k * k
     t0 = eta2 - k2 - si2
-    a2b2 = torch.sqrt((t0 * t0 + 4.0 * eta2 * k2).clamp_min(0.0))
+    # safe_sqrt: a lane with k == 0 (any non-conductor lane evaluates this
+    # branch too) and t0 <= 0 takes sqrt(0), whose infinite partial turns
+    # the lane's zero cotangent into NaN once the camera is differentiated
+    a2b2 = safe_sqrt(t0 * t0 + 4.0 * eta2 * k2)
     t1 = a2b2 + ci2
-    a = torch.sqrt((0.5 * (a2b2 + t0)).clamp_min(0.0))
+    a = safe_sqrt(0.5 * (a2b2 + t0))
     t2 = 2.0 * a * ci
     rs = (t1 - t2) / (t1 + t2).clamp_min(1e-12)
     t3 = ci2 * a2b2 + si2 * si2
@@ -304,7 +311,7 @@ def beckmann_sample_wh(wo, u1, u2, ax, ay):
         torch.cos(phi) ** 2 * ay / ax.clamp_min(1e-12)
         + torch.sin(phi) ** 2 * ax / ay.clamp_min(1e-12))
     c = 1.0 / torch.sqrt(1.0 + tan2)
-    s = torch.sqrt((1.0 - c * c).clamp_min(0.0))
+    s = safe_sqrt(1.0 - c * c)
     wh = torch.stack([s * torch.cos(phi), s * torch.sin(phi), c], -1)
     return torch.where((wo[..., 2] < 0.0)[..., None], -wh, wh)
 
