@@ -38,13 +38,21 @@ the counters), and K4 also on the dead-heavy, all-dead, one-ray and
 just before and read just after, each beside the same renderer's forward
 sample and against the same step through the plain version on the middle
 crop, and three `parallel.mesh.train_step_fn` steps on the small museum.
+The `appearance` phase renders `tools/testscenes.py` `textured_museum` (the
+small museum with an image-mapped floor from a 2048x2048 PFM, a
+checkerboard wall, marble / wrinkled statues, an environment-mapped
+infinite light of 2048x1024 and a goniometric light) at 1024x1024 through
+K1, against the plain version on the crop, takes `value_and_grad` with
+respect to `mat_kd`, `light_L`, `tex_atlas` and `env_map` (the film is
+linear in the two emitter tables jointly) and three training steps toward
+its image with the environment map halved.
 There is no fallback: without a CUDA device, without the `tpupt_torch`
 package beside it, with a kernel that does not build, launch or agree, or
 with any failed check, it exits with a code other than 0 and prints no
 result line.
 
 Output: one JSON object per phase (`env`, `kernels`, `main_path`,
-`gradients`), then the card's name and power limit, the `{"kernels": [...]}`
+`gradients`, `appearance`), then the card's name and power limit, the `{"kernels": [...]}`
 line, and last `{"ok": true, "device": {...}}`.
 """
 
@@ -80,6 +88,7 @@ from tpupt_torch.scene.device import build_scene_bvh, upload, with_alt_accel
 from tpupt_torch.scene.flatten import flatten, with_resolution
 from tpupt_torch.scene.loader import parse_file, parse_string
 from tpupt_torch.scene.params import ParamSet
+from tpupt_torch.textures.textures import ALL_TYPES
 from tpupt_torch.tools import genscene, testscenes
 from tpupt_torch.utils.build import (BUILD_DIR, CSRC_DIR, NVCC_FLAGS,
                                      compile_shared, find_nvcc)
@@ -112,6 +121,17 @@ FILM_VS_RENDER_REL = 1e-6
 # three SGD steps of train_step_fn toward the small museum rendered with
 # every diffuse albedo halved
 TRAIN_STEPS, TRAIN_LR = 3, 0.5
+# the appearance phase: tools/testscenes.py textured_museum at MUSEUM_65K's
+# size (a 2048x2048 floor texture, a 2048x1024 environment map with a sun
+# disc, a 256x128 goniometric map), SPP_APPEAR samples through K1;
+# value_and_grad of bench_loss with respect to APPEAR_PARAMS (the film is
+# linear in light_L and env_map jointly: sum(light_L * g) + sum(env_map * g)
+# equals the loss to LINEARITY_RTOL), and three training steps of the same
+# tables toward the image rendered with env_map halved
+APPEAR_MAPS = dict(tex_res=2048, env_res=(2048, 1024), gonio_res=(256, 128))
+APPEAR_PARAMS = ("mat_kd", "light_L", "tex_atlas", "env_map")
+SPP_APPEAR = 2
+APPEAR_TRAIN_LR = 0.05
 # kd-tree, restricted BSP with 3 / 7 / 13 directions, one tree with a
 # direction per node and one with kd nodes mixed in: (name, nbDirections)
 KD_TREES = [("kdtree", None), ("rbsp", 3), ("rbsp", 7), ("rbsp", 13),
@@ -949,6 +969,10 @@ def main(argv) -> int:
           "loss": "sum(film.rgb)", "museum_65k": grads65,
           "museum_1m": grads1m, "train": train_steps(sc65, tables65, dev)})
 
+    # ---- appearance: the textured, environment-lit museum through K1
+    look = appearance(dev, with_profile, (sc65, tables65))
+    emit({"phase": "appearance", **look})
+
     kernels = []
     # K1 at the shape where the main path launches it: the 63,558-triangle
     # museum's secondary rays (its 1M-museum figures beside them)
@@ -983,6 +1007,9 @@ def main(argv) -> int:
         for g in (grads65, grads1m):
             if g["kernel"] == kind:
                 kernels[-1]["fwd_bwd_launches"] = g["launches"][kind]
+        kernels[-1]["appearance_launches"] = look["launches"][kind]
+        kernels[-1]["appearance_fwd_bwd_launches"] = (
+            look["gradients"]["launches"][kind])
         if kind == "traverse_wide":
             w1m = shape["traverse_wide"]
             kernels[-1]["at_museum_1m"] = {
@@ -1025,6 +1052,8 @@ def main(argv) -> int:
                 + rq["any"][kind]["dead_pair_bytes"]}
                if kind == "walk_pairs" else {}),
             "rays_per_launch": shape["rays"],
+            "appearance_launches": look["launches"][kind],
+            "appearance_fwd_bwd_launches": look["gradients"]["launches"][kind],
             "per": ("one launch" if kind == "bin_rays"
                     else "one driver call: pass 0 + pass 1, two launches"),
             "tolerance": "every output equal to the bit"})
@@ -1035,6 +1064,133 @@ def main(argv) -> int:
           "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                      "count": torch.cuda.device_count()}})
     return 0
+
+
+def appearance(dev, with_profile, untextured) -> dict:
+    """The appearance phase: tools/testscenes.py `textured_museum` at
+    MUSEUM_65K's size through the entry points (parse_file -> flatten ->
+    upload -> Renderer), rendered at MAIN_RES, SPP_APPEAR samples, through
+    K1 with the launch counts set to 0 just before and read just after, held
+    against the plain-version render on PLAIN_CROP; `value_and_grad` of
+    `bench_loss` with respect to APPEAR_PARAMS over SPP_APPEAR samples (the
+    emitters' linearity, finite gradients, K1's launches); three training
+    steps toward the image with env_map halved. `with_profile` adds one
+    textured sample's device launches and busy share beside one sample of
+    `untextured` = (scene, tables), the plain museum, and beside one
+    textured sample that computes every texture type (the port computes
+    only the types the scene's materials name, `SceneStatics.tex_types`)."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = testscenes.textured_museum(tmp, **APPEAR_MAPS, **MUSEUM_65K)
+        t_gen = time.time() - t0
+        t0 = time.time()
+        scene = flatten(parse_file(path), tmp)
+        t_flatten = time.time() - t0
+    t0 = time.time()
+    tables = upload(scene, light_strategy=scene.integrator.light_strategy,
+                    device=dev)
+    torch.cuda.synchronize()
+    t_upload = time.time() - t0
+    ds, st = tables
+    want_w, want_h = APPEAR_MAPS["env_res"]
+    if (st.two_level or not st.has_textures or not st.has_light_imgs
+            or (st.env_w, st.env_h) != (want_w, want_h)):
+        fail(f"the textured museum's tables are not what it asks for: {st}")
+    r = Renderer(scene, device=dev, tables=tables)
+    film, ms, counts = drive(r, {"traverse_wide": 1}, SPP_APPEAR)
+    fin, lum = check_image(r, film, "textured_museum")
+    img = r.image(film)
+    del film
+    plain = against_plain_render(scene, tables, "traverse_wide", dev)
+
+    # value_and_grad with respect to the appearance tables
+    params = {k: getattr(ds, k) for k in APPEAR_PARAMS}
+    torch.cuda.reset_peak_memory_stats()
+    bytes_before = torch.cuda.memory_allocated()
+    zero_launches()
+    step_ms, values, linearity = [], [], []
+    for s in range(SPP_APPEAR):
+        t0 = time.time()
+        value, grads, _ = r.value_and_grad(bench_loss, params, s)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t0) * 1e3)
+        v = float(value)
+        for k, g in grads.items():
+            if not bool(torch.isfinite(g).all()) or not float(g.abs().max()) > 0:
+                fail(f"appearance gradients: d loss / d {k} is not finite or 0")
+        lin = float((grads["light_L"] * params["light_L"]).sum()
+                    + (grads["env_map"] * params["env_map"]).sum())
+        if not abs(lin - v) <= LINEARITY_RTOL * abs(v):
+            fail(f"appearance gradients: sum(light_L * g) + sum(env_map * g) "
+                 f"= {lin}, loss {v}")
+        values.append(v)
+        linearity.append(lin)
+    g_counts = launch_counts()
+    want = 2 * (scene.integrator.max_depth + 1) * r.n_batches * SPP_APPEAR
+    for k, c in g_counts.items():
+        if c != (want if k == "traverse_wide" else 0):
+            fail(f"appearance value_and_grad launched {k} {c} times")
+    g_ms = sum(step_ms) / SPP_APPEAR
+    grad_line = {
+        "params": APPEAR_PARAMS, "spp": SPP_APPEAR,
+        "fwd_bwd_ms_per_spp": g_ms, "fwd_bwd_ms_each_spp": step_ms,
+        "fwd_bwd_camera_rays_per_s": MAIN_RES * MAIN_RES / (g_ms * 1e-3),
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "allocated_bytes_before": bytes_before, "launches": g_counts,
+        "loss": values, "emitters_times_grad": linearity,
+        "linearity_rtol": LINEARITY_RTOL,
+        "grad_abs_max": {k: float(g.abs().max()) for k, g in grads.items()}}
+    del grads
+
+    # three training steps toward the image with env_map halved
+    target_r = Renderer(scene, device=dev, tables=(
+        ds._replace(env_map=ds.env_map * 0.5), st))
+    target = target_r.image(target_r.render(spp=1))
+    del target_r
+    step, params0 = train_step_fn(scene, None, target, device=dev,
+                                  tables=tables)
+    tparams = {k: params0[k] for k in APPEAR_PARAMS}
+    losses, t_ms = [], []
+    torch.cuda.synchronize()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.time()
+        loss, tparams = step(tparams, 0, APPEAR_TRAIN_LR)
+        losses.append(float(loss))
+        t_ms.append((time.time() - t0) * 1e3)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"appearance training did not lower the loss: {losses}")
+    profiled = {}
+    if with_profile:
+        r_plain = Renderer(untextured[0], device=dev, tables=untextured[1])
+        r_all = Renderer(scene, device=dev, tables=(ds, st._replace(
+            tex_types=(ALL_TYPES, ALL_TYPES))))
+        profiled = {"profile_textured_spp": profile_one_spp(
+                        lambda: r.render(spp=1)),
+                    "profile_untextured_spp": profile_one_spp(
+                        lambda: r_plain.render(spp=1)),
+                    "profile_textured_every_type_spp": profile_one_spp(
+                        lambda: r_all.render(spp=1))}
+    return {
+        "scene": "tools/testscenes.py textured_museum", **MUSEUM_65K,
+        **APPEAR_MAPS, "triangles": st.n_tris, "two_level": st.two_level,
+        "tex_types": [sorted(t) for t in st.tex_types],
+        "texture_rows": int(ds.tex_type.shape[0]),
+        "atlas_texels": int(ds.tex_atlas.shape[0]),
+        "lights": int(st.n_lights), "env_light_id": st.env_light_id,
+        "host_s": {"generate_and_write_maps": round(t_gen, 2),
+                   "parse_flatten_load_maps": round(t_flatten, 2),
+                   "bvh_upload_distribution2d": round(t_upload, 2)},
+        "resolution": [MAIN_RES, MAIN_RES],
+        "max_depth": scene.integrator.max_depth, "spp": SPP_APPEAR,
+        "batches": r.n_batches, "ms_per_spp": ms,
+        "camera_rays_per_s": MAIN_RES * MAIN_RES / (ms * 1e-3),
+        "launches": counts, "finite_pixel_share": fin, "mean_luminance": lum,
+        "image_mean_rgb": [float(x) for x in img.reshape(-1, 3).mean(0)],
+        **plain, "gradients": grad_line,
+        "train": {"params": APPEAR_PARAMS, "lr": APPEAR_TRAIN_LR,
+                  "target": "env_map * 0.5", "loss_each_step": losses,
+                  "ms_each_step": t_ms},
+        **profiled}
 
 
 def bench_loss(film):

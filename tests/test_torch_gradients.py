@@ -4,9 +4,11 @@ with `from_numpy`) and the same sampler; and the port's own checks of
 `Renderer.value_and_grad`: central differences, finite gradients on the
 dry-run scene, and the replay of pass 1's hits in pass 2. Both packages
 detach traversal (the detached-sampling estimator), so the gradients flow
-through the shading chain only, with respect to the six parameter tables
-of the JAX package's training step that the port has. The film-level
-gradients and the training step are in test_torch_train.py.
+through the shading chain only, with respect to the parameter tables of
+the JAX package's training step: the six of an untextured scene, and on a
+scene of every texture class under an environment map also the texture
+atlas and the environment map. The film-level gradients and the training
+step are in test_torch_train.py.
 
 The JAX side runs its own `path_li` eagerly, with the bounce loop unrolled
 (`unroll=True`, as on the TPU) and its XLA wide-BVH walker jitted once per
@@ -53,6 +55,7 @@ from tpupt_torch.tools import genscene, testscenes
 
 from __graft_entry__ import _SCENE_TXT
 from test_differentiable import _SCENE, _SCENE2
+from test_torch_textures import write_all_classes_scene
 
 # one intra-op thread: the tier-1 run puts six test processes on the
 # machine's cores, and more threads a process only make them compete
@@ -61,6 +64,10 @@ torch.set_num_threads(1)
 GRAD_TOL = 1e-4          # of the largest absolute gradient of a table
 RAY_RTOL, RAY_ATOL = 1e-4, 1e-5
 BENCH = ("mat_kd", "mat_ks", "mat_roughness", "light_L")
+# the environment map and the texture atlas: one-row dummies, never read, in
+# a scene without an environment map or textures; CORE is the rest
+APPEARANCE = ("env_map", "tex_atlas")
+CORE = tuple(k for k in PARAMS if k not in APPEARANCE)
 
 # test_differentiable's scenes; the two-material one with the halton
 # sampler in both packages (the port has no 02sequence sampler yet)
@@ -84,8 +91,16 @@ def _adjust(sc, depth, res):
 
 
 def _pair(name, tmp_path=None):
-    """(jax scene, jax Renderer, port scene, port Renderer) on one table set."""
-    if name == "museum":
+    """(jax scene, jax Renderer, port scene, port Renderer) on one table set.
+    "appearance": test_torch_textures' scene of every texture class under an
+    environment map, a constant infinite, a goniometric and a projection
+    light, at 16x16, depth 2."""
+    if name == "appearance":
+        path = write_all_classes_scene(str(tmp_path))
+        d = os.path.dirname(path)
+        sj = _adjust(jax_flatten(jax_parse_file(path), d), 2, 16)
+        sp = _adjust(flatten(parse_file(path), d), 2, 16)
+    elif name == "museum":
         path = genscene.museum(str(tmp_path), grid=2, seg=8, rings=4)
         d = os.path.dirname(path)
         sj, sp = (jax_flatten(jax_parse_file(path), d),
@@ -117,7 +132,7 @@ def _jax_walkers(st):
             lambda ds, st_, o, d, tmax, **kw: occluded(ds, o, d, tmax))
 
 
-def _params(ds, names=PARAMS):
+def _params(ds, names=CORE):
     return {k: getattr(ds, k) for k in names}
 
 
@@ -132,11 +147,16 @@ def _close_grads(g_port, g_jax, what, tol=GRAD_TOL):
         assert err <= tol * scale, f"{what} {k}: {err} > {tol} * {scale}"
 
 
-@pytest.mark.parametrize("name", list(SCENES))
-def test_per_ray_gradients_match_jax(name):
+@pytest.mark.parametrize("name", list(SCENES) + ["appearance"])
+def test_per_ray_gradients_match_jax(name, tmp_path):
     """d/dtheta of sum(W * L) for a fixed random W, L the per-ray radiance
-    of path_li over the renderer's camera rays of sample 0."""
-    sj, rj, sp, rt = _pair(name)
+    of path_li over the renderer's camera rays of sample 0. On the
+    "appearance" scene with respect to the bench's four tables, the texture
+    atlas and the environment map, whose gathers' cotangents add up per
+    texel (its camera gradients are not compared: they differ from
+    jax.grad's beyond GRAD_TOL there, ROADMAP.md section 3)."""
+    sj, rj, sp, rt = _pair(name, tmp_path)
+    names = BENCH + APPEARANCE if name == "appearance" else CORE
     assert rt.n_batches == 1 and rj.n_batches == 1
     n = rt.batch
     isect, isect_p = _jax_walkers(rj.st)
@@ -156,8 +176,9 @@ def test_per_ray_gradients_match_jax(name):
                            o, d, isect=isect, isect_p=isect_p, unroll=True)
         return jnp.where(rj.valid[:, None], L, 0.0)
 
-    Lj, vjp = jax.vjp(jax_L, _params(rj.ds))
-    leaves = {k: v.clone().requires_grad_() for k, v in _params(rt.ds).items()}
+    Lj, vjp = jax.vjp(jax_L, _params(rj.ds, names))
+    leaves = {k: v.clone().requires_grad_()
+              for k, v in _params(rt.ds, names).items()}
     _, Lt, _ = rt._radiance(rt.ds._replace(**leaves), 0, 0)
     Lt = torch.where(rt._valid_b[0][:, None], Lt, 0.0)
     Lj = np.asarray(Lj)
@@ -173,10 +194,16 @@ def test_per_ray_gradients_match_jax(name):
     gt = {k: g if g is not None else torch.zeros_like(leaves[k])
           for k, g in zip(leaves, gt)}
     _close_grads(gt, gj, name)
+    if name == "appearance":
+        # every material's Kd and Ks is a texture there: their rows get none
+        for k in ("tex_atlas", "env_map", "light_L"):
+            assert float(gt[k].abs().max()) > 1e-3, k
+        assert float(gt["mat_roughness"].abs().max()) > 0.0
+        return
     for k in ("mat_kd", "light_L"):
         assert float(gt[k].abs().max()) > 1e-3, k
     if name != "matte_plane":   # the plane's emitter-free, camera-flat case
-        for k in PARAMS:
+        for k in names:
             assert float(gt[k].abs().max()) > 0.0, k
 
 

@@ -94,7 +94,7 @@ def test_the_gradient_modules_are_among_them():
         "import sys\n"
         "from tpupt_torch.parallel.mesh import PARAMS, train_step_fn\n"
         "from tpupt_torch.integrators.path import Renderer\n"
-        "assert hasattr(Renderer, 'value_and_grad') and len(PARAMS) == 6\n"
+        "assert hasattr(Renderer, 'value_and_grad') and len(PARAMS) == 8\n"
         "print('JAX', any(m.split('.')[0] in ('jax', 'jaxlib', 'tpupt') "
         "for m in sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -126,3 +126,29 @@ def test_no_source_file_of_the_port_names_jax_or_tpupt_imports():
             if f.endswith(".py"):
                 roots = _imported_roots(os.path.join(dirpath, f))
                 assert not roots & {"jax", "jaxlib", "tpupt"}, (dirpath, f)
+
+
+def test_the_appearance_modules_are_among_them():
+    """The appearance slice: textures, the ptex codec, the sampling
+    distributions and the light module import without a card and without
+    jax or tpupt, and PIL (which the card's machine lacks) only when a PNG
+    is read."""
+    names = set(_module_names())
+    assert {"tpupt_torch.textures.textures", "tpupt_torch.textures.ptex",
+            "tpupt_torch.core.sampling", "tpupt_torch.lights.lights"} <= names
+    code = (
+        "import sys\n"
+        "import tpupt_torch.textures.textures as t\n"
+        "import tpupt_torch.textures.ptex as p\n"
+        "from tpupt_torch.core.sampling import Distribution2D\n"
+        "from tpupt_torch.lights.lights import sample_env, env_pdf\n"
+        "from tpupt_torch.scene.flatten import flatten\n"
+        "assert len(t.ALL_TYPES) == 14 and hasattr(p, 'write_ptex')\n"
+        "print('PIL', 'PIL' in sys.modules)\n"
+        "print('JAX', any(m.split('.')[0] in ('jax', 'jaxlib', 'tpupt') "
+        "for m in sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "JAX False" in out.stdout and "PIL False" in out.stdout

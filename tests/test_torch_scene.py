@@ -17,6 +17,7 @@ from tpupt_torch.scene.device import (ALT_FIELDS, ALT_STATICS,
                                       SceneStatics, from_numpy, upload)
 from tpupt_torch.scene.flatten import flatten
 from tpupt_torch.scene.loader import parse_file, parse_string
+from tpupt_torch.textures.textures import present_types
 from tpupt_torch.tools import genscene, testscenes
 
 # one intra-op thread: the tier-1 run puts six test processes on the
@@ -65,6 +66,10 @@ def test_upload_tables_array_equal(name, strategy, tmp_path):
         if f in ALT_STATICS:   # the port's own; the JAX Renderer keeps them
             assert not getattr(st_t, f), f
             continue
+        if f == "tex_types":   # the port's own: the types materials name
+            assert st_t.tex_types == present_types(
+                ds_j.tex_type, ds_j.mat_kd_tex, ds_j.mat_ks_tex)
+            continue
         assert getattr(st_j, f) == getattr(st_t, f), f
     assert st_j.two_level is False  # the JAX side took its single-level path
 
@@ -101,26 +106,71 @@ def test_cuda_device_without_card_raises(tmp_path):
         upload(sc, device="cuda")
 
 
+# each feature the port still refuses: (scene lines, the step that raises,
+# the words that begin its item in ROADMAP.md's queue 1)
 _UNPORTED = {
-    "texture": 'Texture "t" "spectrum" "checkerboard"\nMaterial "matte" "texture Kd" "t"',
-    "disney": 'Material "disney"',
-    "infinite": 'LightSource "infinite"',
-    "medium": 'MakeNamedMedium "fog" "string type" "homogeneous"',
+    "disney": ('Material "disney"', "flatten", "Materials:"),
+    "mix": ('Material "mix"', "flatten", "Materials:"),
+    "hair": ('Material "hair"', "flatten", "Materials:"),
+    "fourier": ('Material "fourier"', "flatten", "Materials:"),
+    "subsurface": ('Material "subsurface"', "flatten", "Materials:"),
+    "medium": ('MakeNamedMedium "fog" "string type" "homogeneous"',
+               "flatten", "Media and volpath"),
+    "realistic": ("", "flatten", "Cameras and motion"),
+    "motion": ("ActiveTransform EndTime\nTranslate 0 0 1\nActiveTransform All",
+               "upload", "Cameras and motion"),
+    "integrator": ("", "renderer", "Other integrators"),
+    "sampler": ("", "renderer", "Samplers"),
 }
+
+
+def _roadmap_item(words: str) -> int:
+    """The number of the item of ROADMAP.md's queue 1 that begins with
+    `words` (after its bold mark)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "ROADMAP.md")) as f:
+        text = f.read()
+    queue = text[text.index("### 1. Modules to port"):]
+    queue = queue[:queue.index("\n### 2.")]
+    import re
+    found = re.findall(r"^(\d+)\. \*\*" + re.escape(words), queue, re.M)
+    assert len(found) == 1, words
+    return int(found[0])
 
 
 @pytest.mark.parametrize("feature", list(_UNPORTED))
 def test_unported_features_raise_not_implemented(feature):
+    """Each feature the port does not render yet raises where it is met,
+    naming the ROADMAP.md queue 1 item that will bring it."""
+    from tpupt_torch.integrators.path import Renderer
+
+    lines, where, words = _UNPORTED[feature]
+    camera = ('Camera "realistic"' if feature == "realistic"
+              else 'Camera "perspective" "float fov" [45]')
+    head = {"integrator": 'Integrator "bdpt"',
+            "sampler": 'Sampler "sobol"'}.get(feature, "")
     txt = f"""
-Camera "perspective" "float fov" [45]
+{camera}
 Film "image" "integer xresolution" [8] "integer yresolution" [8]
+{head}
 WorldBegin
-{_UNPORTED[feature]}
-Shape "sphere" "float radius" [1]
+{lines}
+Shape "trianglemesh" "point P" [-1 -1 0  1 -1 0  1 1 0] "integer indices" [0 1 2]
 WorldEnd
 """
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flatten(parse_string(txt))
+    item = _roadmap_item(words)
+    refusal = pytest.raises(NotImplementedError,
+                            match=rf"ROADMAP\.md queue 1, item {item}\)")
+    if where == "flatten":
+        with refusal:
+            flatten(parse_string(txt))
+        return
+    sc = flatten(parse_string(txt))
+    with refusal:
+        if where == "upload":
+            upload(sc, device="cpu")
+        else:
+            Renderer(sc, device="cpu")
 
 
 def test_failed_native_build_raises(monkeypatch, tmp_path):

@@ -22,15 +22,15 @@ from tpupt.parallel import mesh as jax_mesh
 from tpupt_torch.integrators.path import Renderer
 from tpupt_torch.parallel.mesh import PARAMS, train_step_fn
 
-from test_torch_gradients import (BENCH, _close_grads, _jax_walkers, _pair,
-                                  _params)
+from test_torch_gradients import (APPEARANCE, BENCH, CORE, _close_grads,
+                                  _jax_walkers, _pair, _params)
 
 # one intra-op thread: the tier-1 run puts six test processes on the
 # machine's cores, and more threads a process only make them compete
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("loss", ["sum", "weighted"])
+@pytest.mark.parametrize("loss", ["sum", "weighted", "appearance"])
 def test_film_gradients_match_jax(loss, tmp_path):
     """`Renderer.value_and_grad` at 1 spp against `jax.value_and_grad` of
     the same loss of the JAX package's film step. "sum": the bench's loss,
@@ -39,16 +39,22 @@ def test_film_gradients_match_jax(loss, tmp_path):
     1e-14, grazing samples of its area light where a last-bit difference
     flips a threshold, so both packages' are noise). "weighted": a fixed
     random weighting of the pixels, with respect to all six tables, on the
-    dry-run scene at 32x32. The film is linear in light_L (its pdfs and
+    dry-run scene at 32x32. "appearance": sum(film.rgb) on
+    test_torch_gradients' textured, environment-lit scene with respect to
+    the texture atlas, the environment map, light_L and roughness (its Kd
+    and Ks are all textures). The film is linear in the emitters, light_L
+    and env_map jointly (the pdfs, the env map's sampling tables and the
     light grid are upload-time constants), so sum(light_L * dloss/dlight_L)
-    equals the loss."""
-    sj, rj, sp, rt = _pair("museum" if loss == "sum" else "dryrun", tmp_path)
+    + sum(env_map * dloss/denv_map) equals the loss."""
+    scene = {"sum": "museum", "weighted": "dryrun"}.get(loss, loss)
+    sj, rj, sp, rt = _pair(scene, tmp_path)
     rj._isect, rj._isect_p = _jax_walkers(rj.st)
     rj._unroll = True
-    names = BENCH if loss == "sum" else PARAMS
+    names = {"sum": BENCH, "weighted": CORE}.get(
+        loss, ("mat_roughness", "light_L") + APPEARANCE)
     w = np.random.default_rng(3).uniform(
         0.2, 1.0, (sj.film.xres * sj.film.yres, 3)).astype(np.float32)
-    if loss == "sum":
+    if loss != "weighted":
         w[:] = 1.0
 
     def jax_loss(params):
@@ -68,6 +74,8 @@ def test_film_gradients_match_jax(loss, tmp_path):
     for k in names:
         assert float(gt[k].abs().max()) > 0.0, k
     lin = float((gt["light_L"] * rt.ds.light_L).sum())
+    if "env_map" in names:
+        lin += float((gt["env_map"] * rt.ds.env_map).sum())
     np.testing.assert_allclose(lin, float(vt), rtol=1e-4)
 
 
@@ -83,10 +91,33 @@ def test_train_step_matches_jax_and_lowers_the_loss(monkeypatch):
     one-device CPU mesh (its walkers jitted, its bounce loop unrolled), same
     loss and same updated tables; then three steps of the port lower the
     loss."""
-    sj, rj, sp, rt = _pair("two_materials")
-    target = _kd_target(sp, rt)
+    _train_step_against_jax("two_materials", monkeypatch, None)
+
+
+def test_train_step_with_the_appearance_tables_matches_jax(monkeypatch,
+                                                           tmp_path):
+    """The same on test_torch_gradients' textured, environment-lit scene
+    toward its image with the environment map halved: the texture atlas and
+    the environment map are updated as the JAX package updates them (the
+    camera matrices' update is not compared there: their gradients differ,
+    ROADMAP.md section 3), and three steps of light_L, the atlas and the
+    map lower the loss."""
+    _train_step_against_jax("appearance", monkeypatch, tmp_path)
+
+
+def _train_step_against_jax(scene, monkeypatch, tmp_path):
+    sj, rj, sp, rt = _pair(scene, tmp_path)
+    if scene == "appearance":
+        ds = rt.ds._replace(env_map=rt.ds.env_map * 0.5)
+        r = Renderer(sp, device="cpu", tables=(ds, rt.st))
+        target = r.image(r.render(spp=1))
+        names, train = BENCH + APPEARANCE, ("light_L",) + APPEARANCE
+    else:
+        target = _kd_target(sp, rt)
+        names, train = PARAMS, BENCH
     tables = (rt.ds, rt.st)
     step, p0 = train_step_fn(sp, None, target, device="cpu", tables=tables)
+    assert set(p0) == set(PARAMS)
     lr = 1e-3
     loss_t, new_t = step(p0, 0, lr)
 
@@ -99,11 +130,11 @@ def test_train_step_matches_jax_and_lowers_the_loss(monkeypatch):
     loss_j, new_j = jstep.__wrapped__(jp0, jnp.uint32(0), px, py, valid, lr)
     np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-5)
     # the update: p0 - lr * g; compare the steps lr * g themselves
-    _close_grads({k: (p0[k] - new_t[k]) / lr for k in PARAMS},
+    _close_grads({k: (p0[k] - new_t[k]) / lr for k in names},
                  {k: (np.asarray(jp0[k]) - np.asarray(new_j[k])) / lr
-                  for k in PARAMS}, "train step")
+                  for k in names}, "train step")
 
-    params = {k: p0[k] for k in BENCH}
+    params = {k: p0[k] for k in train}
     losses = []
     for _ in range(3):
         loss, params = step(params, 0, 0.5)

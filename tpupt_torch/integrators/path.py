@@ -41,16 +41,17 @@ from tpupt_torch.cameras.perspective import generate_rays
 from tpupt_torch.core.sampling import power_heuristic
 from tpupt_torch.core.spectrum import luminance
 from tpupt_torch.core.vecmath import (absdot, cross, dot, normalize,
-                                      offset_ray_origin)
+                                      offset_ray_origin, safe_sqrt)
 from tpupt_torch.film import film as filmmod
 from tpupt_torch.integrators.replay import HitRecorder
-from tpupt_torch.lights.lights import emitted_radiance, pdf_li, sample_li
+from tpupt_torch.lights.lights import (emitted_radiance, env_pdf,
+                                       env_radiance, pdf_li, sample_li)
 from tpupt_torch.materials import bsdf as bx
 from tpupt_torch.ops import traverse_kdbsp, traverse_treelets, traverse_wide
 from tpupt_torch.samplers.samplers import WavefrontSampler
 from tpupt_torch.scene.device import (DeviceScene, SceneStatics, upload,
                                       with_alt_accel)
-from tpupt_torch.scene.flatten import FlatScene
+from tpupt_torch.scene.flatten import LIGHT_INFINITE, FlatScene
 from tpupt_torch.shapes.quadric import quadric_normal_uv
 from tpupt_torch.shapes.sphere import transform_normal
 
@@ -155,12 +156,76 @@ def shading_point(ds: DeviceScene, st: SceneStatics, hit, o, d,
     )
 
 
+def _infinite_light_le(ds, st):
+    """Constant-radiance sum of the infinite lights without a map (the
+    env-mapped light's L is baked into its map)."""
+    if st.n_lights == 0:
+        return ds.light_L.new_zeros(3)
+    is_inf = ds.light_type == LIGHT_INFINITE
+    if st.env_light_id >= 0:
+        idx = torch.arange(ds.light_type.shape[0], device=is_inf.device)
+        is_inf = is_inf & (idx != st.env_light_id)
+    return torch.sum(torch.where(is_inf[:, None], ds.light_L, 0.0), 0)
+
+
 def miss_radiance_and_pdf(ds, st, d):
-    """(Le, light-sampling pdf) for escaped rays. Infinite lights are not
-    ported yet (the flattener refuses them), so escaped rays see black; the
-    pdf is the uniform-sphere one the MIS weight of the BSDF sample uses."""
+    """(Le, light-sampling pdf) for escaped rays: env-map radiance plus the
+    constant infinite lights; the pdf is the one the MIS weight of the BSDF
+    sample uses (the env sampler's, else the uniform sphere's)."""
     n = d.shape[0]
-    return d.new_zeros((n, 3)), d.new_full((n,), 1.0 / (4.0 * math.pi))
+    le = _infinite_light_le(ds, st).expand(n, 3)
+    pdf = d.new_full((n,), 1.0 / (4.0 * math.pi))
+    if st.env_w > 0:
+        le = le + env_radiance(ds, st, d)
+        pdf = env_pdf(ds, st, d)
+    return le, pdf
+
+
+def ray_cone_footprint(ds, st, hit, d, sp, tri_tab):
+    """Texture footprint of a hit for MIP selection: the ray-cone stand-in
+    for RayDifferential::ScaleDifferentials. Returns (width (N,), the uv
+    major axis (N,2)): the pixel cone's angle x hit distance x the hit
+    triangle's uv density, and the major diameter of the cone's ellipse on
+    the surface (cone * t / |cos|, eccentricity clamped at the reference's
+    MaxAnisotropy 8, mipmap.h:180) projected onto the triangle's uv
+    parametrization. Both carry the camera matrices' gradient through the
+    cone angle and the ray direction."""
+    pix_cone = torch.linalg.norm(ds.raster_to_camera[:3, 1])
+    prim0 = hit.prim.clamp_min(0)
+    on_tri = prim0 < st.n_tris
+    row = tri_tab[prim0.clamp_max(max(st.n_tris - 1, 0)).long()]
+    p0, p1, p2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
+    uv0, uv1, uv2 = row[:, 18:20], row[:, 20:22], row[:, 22:24]
+    e1, e2 = p1 - p0, p2 - p0
+    w_area = 0.5 * torch.linalg.norm(cross(e1, e2), dim=-1)
+    du1, du2 = uv1 - uv0, uv2 - uv0
+    det_uv = du1[..., 0] * du2[..., 1] - du1[..., 1] * du2[..., 0]
+    uv_area = 0.5 * torch.abs(det_uv)
+    dens = torch.sqrt(uv_area / w_area.clamp_min(1e-12))
+    dens = torch.where(on_tri, dens, 1.0)
+    t_hit = torch.where(hit.valid, hit.t, 1.0)
+    width = pix_cone * t_hit * dens
+
+    cos_i = torch.abs(dot(d, sp.ns))
+    h = d - dot(d, sp.ns)[..., None] * sp.ns
+    # |h| through safe_sqrt: finite partials at normal incidence (h = 0)
+    h_len = safe_sqrt(dot(h, h))
+    h_unit = h / h_len.clamp_min(1e-12)[..., None]
+    major_w = pix_cone * t_hit / cos_i.clamp_min(1.0 / 8.0)
+    a = h_unit * major_w[..., None]
+    # dpdu / dpdv from the uv deltas (triangle.cpp:87)
+    inv_det = torch.where(torch.abs(det_uv) > 1e-12, 1.0 / det_uv, 0.0)
+    dpdu = (du2[..., 1:2] * e1 - du1[..., 1:2] * e2) * inv_det[..., None]
+    dpdv = (-du2[..., 0:1] * e1 + du1[..., 0:1] * e2) * inv_det[..., None]
+    g11, g12, g22 = dot(dpdu, dpdu), dot(dpdu, dpdv), dot(dpdv, dpdv)
+    det_g = g11 * g22 - g12 * g12
+    b1_, b2_ = dot(a, dpdu), dot(a, dpdv)
+    ok_g = (torch.abs(det_g) > 1e-18) & on_tri & (h_len > 1e-9)
+    inv_g = torch.where(ok_g, 1.0 / torch.where(ok_g, det_g, 1.0), 0.0)
+    du_ = (g22 * b1_ - g12 * b2_) * inv_g
+    dv_ = (g11 * b2_ - g12 * b1_) * inv_g
+    aniso = torch.where(ok_g[..., None], torch.stack([du_, dv_], -1), 0.0)
+    return width, aniso
 
 
 def pick_traversal(st: SceneStatics, alt: bool = False):
@@ -293,9 +358,14 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
             # miss -> infinite lights (path.cpp:100-107)
             miss = alive & ~hit.valid
             miss_le, miss_pdf = miss_radiance_and_pdf(ds, st, d)
+            if st.spatial_lights and st.env_light_id >= 0:
+                inf_pmf_r = light_pmf_at(prev_p, torch.full(
+                    (n,), st.env_light_id, dtype=i32, device=dev))
+            else:
+                inf_pmf_r = inf_pmf
             w_inf = torch.where(
                 prev_specular, 1.0,
-                power_heuristic(1.0, prev_pdf, 1.0, miss_pdf * inf_pmf))
+                power_heuristic(1.0, prev_pdf, 1.0, miss_pdf * inf_pmf_r))
             L = L + torch.where(miss[..., None],
                                 beta * miss_le * w_inf[..., None], 0.0)
 
@@ -308,7 +378,14 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
             if max_depth > 0 else [o.new_zeros(n)] * 7
 
         # ---- material gather + local frame ----
-        mp = bx.gather_mat_params(ds, sp.mat, uv=sp.uv)
+        tex_width = tex_aniso = None
+        if st.has_textures:
+            tex_width, tex_aniso = ray_cone_footprint(ds, st, hit, d, sp,
+                                                      tables[0])
+        mp = bx.gather_mat_params(ds, sp.mat, uv=sp.uv, p=sp.p, face=sp.face,
+                                  has_textures=st.has_textures,
+                                  tex_width=tex_width, tex_aniso=tex_aniso,
+                                  tex_types=st.tex_types)
         t_f, b_f, n_f = bx.make_frame(sp.ns)
         wo_l = bx.to_local(t_f, b_f, n_f, wo)
 
@@ -423,7 +500,7 @@ class Renderer:
         if scene.integrator.name != "path":
             raise NotImplementedError(
                 f"integrator {scene.integrator.name!r} is not in the PyTorch "
-                "port yet (ROADMAP.md queue 1, item 11)")
+                "port yet (ROADMAP.md queue 1, item 12)")
         accel = (scene.accelerator_name or "bvh").lower()
         self.device = torch.device(device)
         self.scene = scene
@@ -492,7 +569,8 @@ class Renderer:
         ul2 = sampler.dim(px_b, py_b, sample_idx, 3)
         o, d = generate_rays(cam.type, ds.raster_to_camera, ds.cam_to_world,
                              p_raster, torch.stack([ul1, ul2], -1),
-                             cam.lens_radius, cam.focal_distance)
+                             cam.lens_radius, cam.focal_distance,
+                             self.cfg.xres, self.cfg.yres)
         integ = self.scene.integrator
         L, aov = path_li(
             ds, self.st, sampler, integ.max_depth, integ.rr_threshold,

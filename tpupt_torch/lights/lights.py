@@ -7,20 +7,31 @@ other MIS half, integrator.cpp:109-217 EstimateDirect). Area lights are
 prim-linked rows: triangle lights sample the triangle uniformly by area
 (triangle.cpp Sample), sphere lights sample the visible cone
 (sphere.cpp:232-290 Sample(ref)). Point lights are the default of the
-type select; infinite, goniometric and projection lights are refused by the
-flattener until they are ported."""
+type select; goniometric and projection lights are point lights scaled by a
+map, infinite lights sample the sphere uniformly or, with an environment
+map, by its Distribution2D (lights/infinite.cpp).
+
+Every gather of a table that can be a training parameter (light_L,
+light_img, env_map) is an `index_select`, whose backward adds the
+cotangents of repeated rows with atomics."""
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
-from tpupt_torch.core.sampling import (uniform_cone_pdf, uniform_sample_cone,
+from tpupt_torch.core.sampling import (Distribution2D, uniform_cone_pdf,
+                                       uniform_sample_cone,
+                                       uniform_sample_sphere,
                                        uniform_sample_triangle)
 from tpupt_torch.core.vecmath import coordinate_system, cross, dot, length
 from tpupt_torch.materials.bsdf import to_world
-from tpupt_torch.scene.flatten import LIGHT_AREA, LIGHT_DISTANT, LIGHT_SPOT
+from tpupt_torch.scene.flatten import (LIGHT_AREA, LIGHT_DISTANT, LIGHT_GONIO,
+                                       LIGHT_INFINITE, LIGHT_PROJECTION,
+                                       LIGHT_SPOT)
+from tpupt_torch.textures.textures import bilinear, rows
 
 
 class LightSample(NamedTuple):
@@ -33,6 +44,26 @@ class LightSample(NamedTuple):
 
 def _world_radius(ds):
     return 0.5 * length(ds.world_hi - ds.world_lo) + 1e-3
+
+
+def _light_img_fetch(ds, light_id, u, v):
+    """Bilinear fetch from the per-light map atlas (gonio/projection); 1
+    for a light without a map."""
+    lid = light_id.long()
+    off = ds.light_img_off[lid]
+    w = ds.light_img_w[lid].clamp_min(1)
+    h = ds.light_img_h[lid].clamp_min(1)
+    n_tex = ds.light_img.shape[0]
+
+    def texel(xi, yi):
+        xi = torch.minimum(xi.to(torch.int32).clamp_min(0), w - 1)
+        yi = torch.minimum(yi.to(torch.int32).clamp_min(0), h - 1)
+        return rows(ds.light_img,
+                    (off.clamp_min(0) + yi * w + xi).clamp(0, n_tex - 1))
+
+    val = bilinear(u.clamp(0.0, 1.0) * w - 0.5, v.clamp(0.0, 1.0) * h - 0.5,
+                   texel)
+    return torch.where((off >= 0)[..., None], val, 1.0)
 
 
 def _gather_tri_light_geo(ds, prim):
@@ -82,9 +113,49 @@ def sample_li(ds, st, light_id, p, u1, u2):
     li_spot = li_point * torch.where(cos_axis < ct, 0.0,
                                    torch.where(cos_axis > cf, 1.0, falloff))[..., None]
 
+    # --- goniometric / projection (lights/goniometric.cpp Scale,
+    # lights/projection.cpp Projection): point light modulated by a map ---
+    li_gonio = li_point
+    li_proj = li_point
+    if st.has_light_imgs:
+        w2l = ds.light_w2l[lid]
+        d_l = torch.einsum("nij,nj->ni", w2l, -wi_p)  # direction FROM light
+        # gonio: equirect (theta from +z, phi in xy)
+        theta = torch.arccos(d_l[..., 2].clamp(-1.0, 1.0))
+        phi = torch.atan2(d_l[..., 1], d_l[..., 0])
+        phi = torch.where(phi < 0, phi + 2 * math.pi, phi)
+        g_scale = _light_img_fetch(ds, light_id, phi / (2 * math.pi),
+                                   theta / math.pi)
+        li_gonio = li_point * g_scale
+        # projection: perspective map through the fov window
+        wz = d_l[..., 2].clamp_min(1e-6)
+        half_tan = torch.tan(torch.arccos(ct.clamp(-1.0, 1.0)))
+        aspect = (ds.light_img_w[lid].to(torch.float32)
+                  / ds.light_img_h[lid].clamp_min(1))
+        su = d_l[..., 0] / (wz * half_tan.clamp_min(1e-6))
+        sv = d_l[..., 1] / (wz * half_tan.clamp_min(1e-6)) * aspect
+        in_frustum = ((d_l[..., 2] > 1e-3) & (torch.abs(su) <= 1.0)
+                      & (torch.abs(sv) <= 1.0))
+        p_scale = _light_img_fetch(ds, light_id, (su + 1.0) * 0.5,
+                                   (sv + 1.0) * 0.5)
+        li_proj = li_point * torch.where(in_frustum[..., None], p_scale, 0.0)
+
     # --- distant (lights/distant.cpp Sample_Li) ---
     wi_d = ldir
     dist_d = 2.0 * ones * wr
+
+    # --- infinite: env-map importance sampling, else uniform sphere; the
+    # shadow ray runs past the scene (twice its bounding radius) ---
+    wi_inf = uniform_sample_sphere(u1, u2)
+    li_inf = lL
+    pdf_inf = ones / (4.0 * math.pi)
+    dist_inf = 2.0 * ones * wr
+    if st.env_w > 0:
+        wi_env, li_env, pdf_env = sample_env(ds, st, u1, u2)
+        is_env = light_id == st.env_light_id
+        wi_inf = torch.where(is_env[..., None], wi_env, wi_inf)
+        li_inf = torch.where(is_env[..., None], li_env, li_inf)
+        pdf_inf = torch.where(is_env, pdf_env, pdf_inf)
 
     # --- area: triangle or sphere prim ---
     is_tri_prim = lprim < st.n_tris
@@ -148,7 +219,10 @@ def sample_li(ds, st, light_id, p, u1, u2):
     delta_flag = torch.ones(n, dtype=torch.bool, device=p.device)
     for tid_, w_, l_, pf_, dd_, df_ in (
         (LIGHT_SPOT, wi_p, li_spot, ones, dist_p, True),
+        (LIGHT_GONIO, wi_p, li_gonio, ones, dist_p, True),
+        (LIGHT_PROJECTION, wi_p, li_proj, ones, dist_p, True),
         (LIGHT_DISTANT, wi_d, lL, ones, dist_d, True),
+        (LIGHT_INFINITE, wi_inf, li_inf, pdf_inf, dist_inf, False),
         (LIGHT_AREA, wi_area, li_area, pdf_area, dist_area, False),
     ):
         sel = lt == tid_
@@ -185,6 +259,68 @@ def pdf_li(ds, st, p, wi, hit_prim, hit_t):
     pdf_sph = torch.where(dc2 <= sr * sr * 1.0001, 0.0, pdf_sph)
 
     return torch.where(is_tri, pdf_tri, pdf_sph)
+
+
+# ------------------------- environment map light ---------------------------
+# (lights/infinite.cpp InfiniteAreaLight: equirect map, luminance*sin(theta)
+# importance distribution, bilinear radiance lookup)
+
+
+def _env_distribution(ds):
+    return Distribution2D(ds.env_cond_func, ds.env_cond_cdf,
+                          ds.env_cond_integral, ds.env_marg_func,
+                          ds.env_marg_cdf, ds.env_marg_integral)
+
+
+def _env_uv(ds, d_world):
+    d_l = d_world @ ds.env_w2l.T
+    theta = torch.arccos(d_l[..., 2].clamp(-1.0, 1.0))
+    phi = torch.atan2(d_l[..., 1], d_l[..., 0])
+    phi = torch.where(phi < 0, phi + 2 * math.pi, phi)
+    return phi / (2 * math.pi), theta / math.pi, theta
+
+
+def _env_fetch(ds, st, u, v):
+    """Bilinear fetch from the flat equirect map: u wraps, v clamps."""
+    w, h = st.env_w, st.env_h
+
+    def texel(xi, yi):
+        xi = torch.remainder(xi.to(torch.int32), w)
+        yi = yi.to(torch.int32).clamp(0, h - 1)
+        return rows(ds.env_map, yi * w + xi)
+
+    return bilinear(u * w - 0.5, v * h - 0.5, texel)
+
+
+def env_radiance(ds, st, d_world):
+    """Le of the environment for escaped rays (InfiniteAreaLight::Le)."""
+    u, v, _ = _env_uv(ds, d_world)
+    return _env_fetch(ds, st, u, v)
+
+
+def env_pdf(ds, st, d_world):
+    """Solid-angle pdf the env importance sampler assigns to direction d
+    (infinite.cpp Pdf_Li)."""
+    u, v, theta = _env_uv(ds, d_world)
+    pdf_uv = _env_distribution(ds).pdf(u, v)
+    sin_t = torch.sin(theta).clamp_min(1e-6)
+    return pdf_uv / (2.0 * math.pi * math.pi * sin_t)
+
+
+def sample_env(ds, st, u1, u2):
+    """Importance-sample the environment (infinite.cpp Sample_Li).
+    Returns (wi_world, Li, pdf)."""
+    (u, v), pdf_uv = _env_distribution(ds).sample_continuous(u1, u2)
+    theta = v * math.pi
+    phi = u * 2.0 * math.pi
+    sin_t = torch.sin(theta)
+    d_l = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi),
+                       torch.cos(theta)], -1)
+    wi = d_l @ ds.env_w2l  # inverse of the w2l rotation = transpose
+    li = _env_fetch(ds, st, u, v)
+    pdf = pdf_uv / (2.0 * math.pi * math.pi * sin_t).clamp_min(1e-9)
+    pdf = torch.where(sin_t <= 1e-6, 0.0, pdf)
+    return wi, li, pdf
 
 
 def emitted_radiance(ds, st, hit_prim, hit_light, wo_world, ns):

@@ -36,6 +36,8 @@ import torch
 from tpupt_torch.core.sampling import cosine_sample_hemisphere
 from tpupt_torch.core.vecmath import (coordinate_system, cross, dot, normalize,
                                       safe_sqrt)
+from tpupt_torch.textures.textures import (ALL_TYPES, TEX_FIELDS,
+                                           eval_texture)
 
 INV_PI = 0.3183098861837907
 
@@ -79,8 +81,16 @@ def roughness_to_alpha(r):
     return 1.62142 + 0.819955 * x + 0.1734 * x * x + 0.0171201 * x**3 + 0.000640711 * x**4
 
 
-def gather_mat_params(ds, mat_id, uv=None):
-    """Gather + preprocess material rows for a hit batch."""
+def gather_mat_params(ds, mat_id, uv=None, p=None, face=None,
+                      has_textures=False, tex_width=None, tex_aniso=None,
+                      tex_types=(ALL_TYPES, ALL_TYPES)):
+    """Gather + preprocess material rows for a hit batch. With
+    `has_textures` (static) and `uv` / `p` given, Kd and Ks of the rows
+    that name a texture are evaluated per hit (Material::
+    ComputeScatteringFunctions), at the ray-cone footprint `tex_width` /
+    `tex_aniso`. `tex_types` (static) = (types of the Kd textures, types of
+    the Ks textures): only those are computed, and a channel without
+    textures is not looked up."""
     mrow_ints = torch.stack([ds.mat_type.to(torch.int32),
                            ds.mat_remap.to(torch.int32)], dim=1)
     mtab = torch.cat(
@@ -110,9 +120,24 @@ def gather_mat_params(ds, mat_id, uv=None):
     ay = torch.where(remap, roughness_to_alpha(vr), vr.clamp_min(1e-3))
     sigma = torch.deg2rad(mrow[:, 21])
     s2 = sigma * sigma
+    kd, ks = m_kd, m_ks
+    if has_textures and uv is not None:
+        tx = {k: getattr(ds, k) for k in TEX_FIELDS}
+        kd_types, ks_types = tex_types
+        mid = mat_id.long()
+
+        def lookup(tid, const, types):
+            val = eval_texture(tx, tid.clamp_min(0), uv, p, width=tex_width,
+                               aniso=tex_aniso, face=face, types=types)
+            return torch.where((tid >= 0)[:, None], val, const)
+
+        if kd_types:
+            kd = lookup(ds.mat_kd_tex[mid], m_kd, kd_types)
+        if ks_types:
+            ks = lookup(ds.mat_ks_tex[mid], m_ks, ks_types)
     return MatParams(
         type=m_type,
-        kd=m_kd, ks=m_ks,
+        kd=kd, ks=ks,
         kr=m_kr, kt=m_kt,
         alpha_x=ax, alpha_y=ay,
         eta=m_eta, k=m_k,

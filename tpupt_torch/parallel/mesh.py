@@ -14,12 +14,11 @@ import torch
 from tpupt_torch.integrators.path import (Renderer, sph_shade_table,
                                           tri_shade_table)
 
-# every parameter table of the JAX package's step that the port has:
-# diffuse / specular albedo, roughness, light radiance and the two camera
-# matrices (its environment map and texture atlas wait for ROADMAP.md
-# queue 1, items 7 and 6)
-PARAMS = ("mat_kd", "mat_ks", "mat_roughness", "light_L",
-          "raster_to_camera", "cam_to_world")
+# every parameter table of the JAX package's step: diffuse / specular
+# albedo, roughness, light radiance, the environment map's texels, the
+# texture atlas (per-texel gradients) and the two camera matrices
+PARAMS = ("mat_kd", "mat_ks", "mat_roughness", "light_L", "env_map",
+          "tex_atlas", "raster_to_camera", "cam_to_world")
 
 
 def train_step_fn(scene, mesh, target, device="cuda", tables=None):

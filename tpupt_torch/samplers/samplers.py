@@ -39,7 +39,7 @@ class WavefrontSampler:
         elif name in _LATER:
             raise NotImplementedError(
                 f"sampler {name!r} is not in the PyTorch port yet "
-                "(ROADMAP.md queue 1, item 2)")
+                "(ROADMAP.md queue 1, item 5)")
         else:
             raise ValueError(f"unknown sampler {name!r}")
 

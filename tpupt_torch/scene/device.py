@@ -21,7 +21,9 @@ from tpupt_torch.accel.bvh import (BVHArrays, build_bvh, build_bvh_split,
                                    collapse_to_wide, scene_prim_bounds)
 from tpupt_torch.accel.treelets import (TREELET_NODES, TREELET_PRIMS,
                                         build_treelets)
+from tpupt_torch.core.sampling import build_distribution2d
 from tpupt_torch.scene.flatten import FlatScene
+from tpupt_torch.textures.textures import present_types
 
 # above this many prims the serial sweep-SAH build (O(n log^2 n)) gives
 # way to the vectorized LBVH
@@ -104,9 +106,44 @@ class DeviceScene(NamedTuple):
     light_cos_total: torch.Tensor
     light_cos_falloff: torch.Tensor
     light_pdf: torch.Tensor       # discrete choice pmf per light
+    light_w2l: torch.Tensor       # (L,3,3) world->light rotations (gonio/projection)
+    light_img_off: torch.Tensor   # (L,) i32 into light_img, -1 = none
+    light_img_w: torch.Tensor
+    light_img_h: torch.Tensor
+    light_img: torch.Tensor       # angular / projection map atlas (P,3)
     # spatial light distribution (lightdistrib.h:100): per-voxel light-choice
     # cdf over a G^3 grid of the world bounds; (1,1) when disabled
     light_grid_cdf: torch.Tensor
+    # textures (flat tables + texel atlas; textures/textures.py); one-row
+    # dummies without textures
+    tex_type: torch.Tensor
+    tex_v1: torch.Tensor
+    tex_v2: torch.Tensor
+    tex_uvscale: torch.Tensor
+    tex_f1: torch.Tensor
+    tex_f2: torch.Tensor
+    tex_img_off: torch.Tensor
+    tex_img_w: torch.Tensor
+    tex_img_h: torch.Tensor
+    tex_atlas: torch.Tensor       # (X,3) every image's MIP pyramid, ptex faces
+    tex_mip_off: torch.Tensor     # (T,16) per-level atlas offsets
+    tex_mips: torch.Tensor        # (T,) level counts
+    tex_w2t: torch.Tensor         # (T,4,4) world->texture (3D checkerboard)
+    tex_ptex_off: torch.Tensor    # (F,) atlas offset per ptex face
+    tex_ptex_w: torch.Tensor
+    tex_ptex_h: torch.Tensor
+    mat_kd_tex: torch.Tensor      # (M,) i32 texture row of Kd, -1 = constant
+    mat_ks_tex: torch.Tensor
+    # environment map (equirect) and its Distribution2D tables, built on the
+    # host from the uploaded map and not differentiated
+    env_map: torch.Tensor         # (H*W,3) flat radiance (1 texel if none)
+    env_w2l: torch.Tensor         # (3,3)
+    env_cond_func: torch.Tensor   # (H,W)
+    env_cond_cdf: torch.Tensor    # (H,W+1)
+    env_cond_integral: torch.Tensor
+    env_marg_func: torch.Tensor
+    env_marg_cdf: torch.Tensor
+    env_marg_integral: torch.Tensor
     # camera
     cam_to_world: torch.Tensor
     raster_to_camera: torch.Tensor
@@ -157,14 +194,17 @@ class SceneStatics(NamedTuple):
     # kd / RBSP / BSP tree: 0 levels = no such tables
     alt_max_leaf: int = 0
     alt_tree_depth: int = 0
+    # (Kd, Ks) texture types the materials refer to (textures.
+    # present_types): the only ones eval_texture computes
+    tex_types: tuple = (frozenset(), frozenset())
 
 
 # statics that must be off in tables handed over from the JAX package: each
-# names a feature this package does not render yet
+# names a feature this package does not render yet, (off value, ROADMAP.md
+# queue 1 item)
 _UNPORTED_STATICS = dict(
-    env_w=0, has_textures=False, mat_features=frozenset(),
-    has_light_imgs=False, n_media=0, has_motion=False, cam_animated=False,
-    n_channels=3)
+    mat_features=(frozenset(), 8), n_media=(0, 11), has_motion=(False, 9),
+    cam_animated=(False, 9), n_channels=(3, 10))
 
 
 def pack_prim_rows(scene: FlatScene, prim_ids: np.ndarray) -> np.ndarray:
@@ -331,11 +371,15 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
     if t.has_motion or scene.camera.cam_to_world_end is not None:
         raise NotImplementedError(
             "motion blur is not in the PyTorch port yet (ROADMAP.md queue 1, "
-            "items 3 and 4)")
-    if scene.media or scene.env_map is not None or scene.fourier_table:
+            "item 9)")
+    if scene.media:
         raise NotImplementedError(
-            "media, environment maps and Fourier tables are not in the "
-            "PyTorch port yet (ROADMAP.md queue 1, item 10)")
+            "media are not in the PyTorch port yet (ROADMAP.md queue 1, "
+            "item 11)")
+    if scene.fourier_table:
+        raise NotImplementedError(
+            "Fourier tables are not in the PyTorch port yet (ROADMAP.md "
+            "queue 1, item 8)")
     if bvh is None:
         bvh = build_scene_bvh(scene)
     wlo, whi = scene.world_bounds()
@@ -397,6 +441,10 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
         light_cos_total=_pad1(lt.cos_total),
         light_cos_falloff=_pad1(lt.cos_falloff),
         light_pdf=light_pdf.astype(f32), light_grid_cdf=light_grid_cdf,
+        light_w2l=_pad1(lt.w2l.reshape(-1, 9)).reshape(-1, 3, 3),
+        light_img_off=_pad1(lt.img_off, -1), light_img_w=_pad1(lt.img_w),
+        light_img_h=_pad1(lt.img_h), light_img=lt.img,
+        **texture_fields(scene.textures, m), **env_fields(scene),
         cam_to_world=scene.camera.cam_to_world,
         raster_to_camera=scene.camera.raster_to_camera,
         world_lo=wlo, world_hi=whi,
@@ -412,10 +460,16 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
     wide_max_leaf = (int(((-leaf_metas - 1) & 63).max())
                      if leaf_metas.size else 1)
     cam = scene.camera
+    env_h, env_w = ((scene.env_map.shape[0], scene.env_map.shape[1])
+                    if scene.env_map is not None else (0, 0))
     statics = SceneStatics(
         n_tris=t.count, n_spheres=s.count, n_lights=n_lights,
         max_leaf=max(wide_max_leaf, 1), n_nodes=bvh.n_nodes,
         n_wide_nodes=len(wide_nodes),
+        env_w=env_w, env_h=env_h, env_light_id=scene.env_light_id,
+        has_textures=bool((m.kd_tex >= 0).any() or (m.ks_tex >= 0).any()),
+        has_light_imgs=bool((lt.img_off >= 0).any()),
+        tex_types=present_types(fields["tex_type"], m.kd_tex, m.ks_tex),
         spatial_lights=light_grid_cdf.shape[0] > 1,
         camera_medium=scene.camera_medium,
         shutter_open=float(cam.shutter_open),
@@ -426,8 +480,62 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
     return fields, statics
 
 
+def texture_fields(textures, m) -> dict:
+    """The tex_* and mat_*_tex fields from a FlatScene's texture tables
+    (one-row dummies for each table a scene without textures lacks)."""
+    tx = textures or {}
+    defaults = dict(
+        tex_type=np.zeros(1, np.int32),
+        tex_v1=np.full((1, 3), 0.5, np.float32),
+        tex_v2=np.zeros((1, 3), np.float32),
+        tex_uvscale=np.ones((1, 2), np.float32),
+        tex_f1=np.zeros(1, np.float32), tex_f2=np.zeros(1, np.float32),
+        tex_img_off=np.zeros(1, np.int32), tex_img_w=np.zeros(1, np.int32),
+        tex_img_h=np.zeros(1, np.int32),
+        tex_mip_off=np.zeros((1, 16), np.int32),
+        tex_mips=np.ones(1, np.int32),
+        tex_atlas=np.full((1, 3), 0.5, np.float32),
+        tex_w2t=np.eye(4, dtype=np.float32)[None],
+        tex_ptex_off=np.zeros(1, np.int32),
+        tex_ptex_w=np.ones(1, np.int32),
+        tex_ptex_h=np.ones(1, np.int32))
+    out = {k: tx.get(k, v) for k, v in defaults.items()}
+    out["mat_kd_tex"] = m.kd_tex
+    out["mat_ks_tex"] = m.ks_tex
+    return out
+
+
+def env_fields(scene: FlatScene) -> dict:
+    """The env_* fields: the flat map and its Distribution2D tables over
+    luminance * sin(theta) (lights/infinite.cpp:65), built here once."""
+    if scene.env_map is None:
+        z = np.zeros(1, np.float32)
+        return dict(env_map=np.zeros((1, 3), np.float32),
+                    env_w2l=np.eye(3, dtype=np.float32),
+                    env_cond_func=np.zeros((1, 1), np.float32),
+                    env_cond_cdf=np.zeros((1, 2), np.float32),
+                    env_cond_integral=z, env_marg_func=z,
+                    env_marg_cdf=np.zeros(2, np.float32),
+                    env_marg_integral=np.zeros((), np.float32))
+    img = scene.env_map
+    h, _ = img.shape[:2]
+    lum = img @ np.array([0.2126, 0.7152, 0.0722], np.float32)
+    theta = (np.arange(h) + 0.5) / h * np.pi
+    func = lum * np.sin(theta)[:, None]
+    (cond_func, cond_cdf, cond_integral, marg_func, marg_cdf,
+     marg_integral) = build_distribution2d(func)
+    return dict(
+        env_map=img.reshape(-1, 3),
+        env_w2l=(scene.env_w2l if scene.env_w2l is not None
+                 else np.eye(3, dtype=np.float32)),
+        env_cond_func=cond_func, env_cond_cdf=cond_cdf,
+        env_cond_integral=cond_integral, env_marg_func=marg_func,
+        env_marg_cdf=marg_cdf, env_marg_integral=marg_integral)
+
+
 def _tensor(a, device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.asarray(a)
+    a = np.ascontiguousarray(a) if a.ndim else a  # keeps a 0-d table 0-d
     if a.dtype == np.float64:
         a = a.astype(np.float32)
     elif a.dtype == np.int64:
@@ -478,13 +586,17 @@ def from_numpy(ds_fields: dict, st_fields: dict, device="cuda"):
     BSP tables (alt_flags ... alt_dirs, where its Renderer built them) are
     carried as the node rows packed from them and the prim rows. A static that switches on a
     feature this package lacks raises."""
-    for name, off in _UNPORTED_STATICS.items():
+    for name, (off, item) in _UNPORTED_STATICS.items():
         if st_fields.get(name, off) != off:
             raise NotImplementedError(
                 f"tables with {name}={st_fields[name]!r} need a feature the "
-                "PyTorch port does not have yet (ROADMAP.md queue 1)")
+                f"PyTorch port does not have yet (ROADMAP.md queue 1, item "
+                f"{item})")
     statics = SceneStatics(**{k: st_fields[k] for k in SceneStatics._fields
                               if k in st_fields})
+    statics = statics._replace(tex_types=present_types(
+        ds_fields["tex_type"], ds_fields["mat_kd_tex"],
+        ds_fields["mat_ks_tex"]))
     tla = None
     if statics.two_level:
         tla = build_treelets(np.asarray(ds_fields["wide_nodes"]),

@@ -1,9 +1,9 @@
 """SceneDescription -> FlatScene: flat SoA tensors for the device.
 
-Features this package does not render yet (textures, Disney/hair/Fourier/
-mix materials, subsurface, infinite/goniometric/projection lights, the
-realistic camera, motion blur, media) raise NotImplementedError here, naming
-the ROADMAP.md item that will bring them; nothing is silently dropped.
+Features this package does not render yet (Disney/hair/Fourier/mix
+materials, subsurface, the realistic camera, media; motion blur raises at
+upload) raise NotImplementedError here, naming the ROADMAP.md item that will
+bring them; nothing is silently dropped.
 
 This is the flat-table replacement for the reference's pointer-graph scene
 (GeometricPrimitive / TransformedPrimitive, core/primitive.h): instancing is
@@ -27,6 +27,7 @@ from tpupt_torch.scene.api import MaterialSpec, SceneDescription, ShapeRecord
 from tpupt_torch.scene import quadrics, subdiv
 from tpupt_torch.scene.params import ParamSet
 from tpupt_torch.scene.plyio import read_ply
+from tpupt_torch.textures.textures import TextureTable, load_image
 
 # --- enums (device-side type ids) ---
 
@@ -328,8 +329,9 @@ def _sphere_world_bounds(s: Spheres):
 
 def _resolve_spectrum(params: ParamSet, name: str, default,
                       textures: Dict, warn_ctx: str) -> np.ndarray:
-    """Constant value for a spectrum param, through a constant texture if
-    the param names one (flatten() has refused every other texture class)."""
+    """Constant value for a spectrum param; a non-constant texture gives a
+    representative value here and is evaluated per hit through the row's
+    kd_tex / ks_tex id (see _MaterialTable)."""
     tex = params.find_texture(name)
     if tex is None:
         return params.find_one_spectrum(name, default)
@@ -337,7 +339,17 @@ def _resolve_spectrum(params: ParamSet, name: str, default,
     if td is None:
         warnings.warn(f"{warn_ctx}: unknown texture {tex!r}")
         return np.asarray(default, np.float64)
-    return td.params.find_one_spectrum("value", [1, 1, 1])
+    if td.klass == "constant":
+        return td.params.find_one_spectrum("value", [1, 1, 1])
+    if td.klass == "scale":
+        base = td.params.find_one_spectrum("tex1", [1, 1, 1])
+        s = td.params.find_one_spectrum("tex2", [1, 1, 1])
+        return base * s
+    if td.klass == "checkerboard":
+        t1 = td.params.find_one_spectrum("tex1", [1, 1, 1])
+        t2 = td.params.find_one_spectrum("tex2", [0, 0, 0])
+        return 0.5 * (np.asarray(t1) + np.asarray(t2))
+    return np.asarray(default, np.float64)
 
 
 def _resolve_float(params: ParamSet, name: str, default: float,
@@ -353,14 +365,26 @@ def _resolve_float(params: ParamSet, name: str, default: float,
 
 
 class _MaterialTable:
-    """Deduplicating material table. Only constant textures are folded
-    into the rows; flatten() refuses any other texture class, so no row
-    refers to a texture (kd_tex = ks_tex = -1)."""
+    """Deduplicating material table. Non-constant Kd / Ks textures are
+    registered in the scene's TextureTable and referenced by row id for
+    per-hit evaluation (textures/textures.py); constant ones are folded
+    into the row."""
 
-    def __init__(self, textures: Dict):
+    def __init__(self, textures: Dict, tex_table=None):
         self.textures = textures
+        self.tex_table = tex_table
         self.rows: List[dict] = []
         self.cache: Dict = {}
+
+    def _tex_id(self, params: ParamSet, name: str) -> int:
+        if self.tex_table is None:
+            return -1
+        ref = params.find_texture(name)
+        if ref is None or ref not in self.textures:
+            return -1
+        if self.textures[ref].klass == "constant":
+            return -1  # folded to the constant value
+        return self.tex_table.name_to_id.get(ref, -1)
 
     def add(self, spec: MaterialSpec) -> int:
         key = id(spec)
@@ -381,7 +405,7 @@ class _MaterialTable:
         ctx = f"material {spec.type!r}"
         if t in (MAT_DISNEY, MAT_HAIR, MAT_MIX, MAT_SUBSURFACE,
                  MAT_KDSUBSURFACE, MAT_FOURIER):
-            raise _later(f"material {spec.type!r}", "10")
+            raise _later(f"material {spec.type!r}", "8")
         row = dict(
             type=t,
             kd=np.asarray([0.5, 0.5, 0.5], np.float64),
@@ -390,6 +414,8 @@ class _MaterialTable:
             eta=np.full(3, 1.5), k=np.zeros(3), sigma=0.0,
             remap=True, kd_tex=-1, ks_tex=-1, extra=np.zeros(12),
         )
+        row["kd_tex"] = self._tex_id(p, "Kd")
+        row["ks_tex"] = self._tex_id(p, "Ks")
         if t == MAT_MATTE:
             row["kd"] = _resolve_spectrum(p, "Kd", [0.5] * 3, self.textures, ctx)
             row["sigma"] = _resolve_float(p, "sigma", 0.0, self.textures, ctx)
@@ -657,12 +683,10 @@ def flatten(desc: SceneDescription, scene_dir: str = ".") -> FlatScene:
                                 i2w_close * rec.object_to_world
                                 if i2w_close is not None else None)))
 
-    for name, td in desc.textures.items():
-        if td.klass != "constant":
-            raise _later(f"texture {name!r} of class {td.klass!r}", "10")
     if desc.media:
-        raise _later("participating media", "10")
-    mats = _MaterialTable(desc.textures)
+        raise _later("participating media", "11")
+    tex_table = TextureTable.build(desc.textures, scene_dir)
+    mats = _MaterialTable(desc.textures, tex_table)
     tri_chunks: List[dict] = []
     sph_rows: List[dict] = []
     light_rows: List[dict] = []
@@ -819,6 +843,8 @@ def flatten(desc: SceneDescription, scene_dir: str = ".") -> FlatScene:
     )
 
     # 3. non-area lights
+    env_state = {"map": None, "id": -1, "w2l": None}
+    light_imgs: List[np.ndarray] = []  # gonio/projection map atlas
     for lr in desc.lights:
         p = lr.params
         t = lr.light_to_world
@@ -851,8 +877,54 @@ def flatten(desc: SceneDescription, scene_dir: str = ".") -> FlatScene:
                                    prim=-1, nsamples=1, twosided=False,
                                    cos_total=np.cos(np.deg2rad(cone)),
                                    cos_falloff=np.cos(np.deg2rad(cone - delta))))
-        elif lr.type in ("infinite", "goniometric", "projection"):
-            raise _later(f"light {lr.type!r}", "10")
+        elif lr.type == "infinite":
+            L = p.find_one_spectrum("L", [1, 1, 1]) * scale
+            mapname = p.find_one_string("mapname", "")
+            if mapname:
+                path = mapname if os.path.isabs(mapname) else os.path.join(
+                    scene_dir, mapname)
+                img = load_image(path)
+                if img is not None:
+                    if env_state["map"] is not None:
+                        warnings.warn("multiple env-mapped infinite lights; "
+                                      "only the first gets the map")
+                    else:
+                        # the map carries L (infinite.cpp scales Lmap by L)
+                        env_state["map"] = (img * np.asarray(L)).astype(np.float32)
+                        env_state["id"] = len(light_rows)
+                        env_state["w2l"] = t.m_inv[:3, :3].astype(np.float32)
+                else:
+                    warnings.warn(f"env map {mapname!r} not found; constant L")
+            light_rows.append(dict(type=LIGHT_INFINITE, L=L, pos=np.zeros(3),
+                                   dir=np.array([0, 0, 1.0]), prim=-1,
+                                   nsamples=p.find_one_int("samples", p.find_one_int("nsamples", 1)),
+                                   twosided=False, cos_total=0.0, cos_falloff=0.0))
+        elif lr.type in ("goniometric", "projection"):
+            # goniometric.cpp / projection.cpp: point intensity modulated by
+            # an angular map (equirect) / a projected image (perspective)
+            I = p.find_one_spectrum("I", [1, 1, 1]) * scale
+            frm = t.apply_point([np.zeros(3)])[0]
+            mapname = p.find_one_string("mapname", "")
+            img = None
+            if mapname:
+                path = mapname if os.path.isabs(mapname) else os.path.join(
+                    scene_dir, mapname)
+                img = load_image(path)
+                if img is None:
+                    warnings.warn(f"light map {mapname!r} not found")
+            if img is None:
+                img = np.ones((1, 1, 3), np.float32)
+            off = sum(i.shape[0] * i.shape[1] for i in light_imgs)
+            light_imgs.append(np.asarray(img, np.float32))
+            fov = p.find_one_float("fov", 45.0)
+            typ = (LIGHT_GONIO if lr.type == "goniometric"
+                   else LIGHT_PROJECTION)
+            light_rows.append(dict(
+                type=typ, L=I, pos=frm, dir=np.array([0, 0, 1.0]), prim=-1,
+                nsamples=1, twosided=False,
+                cos_total=np.cos(np.deg2rad(fov) / 2.0), cos_falloff=0.0,
+                w2l=t.m_inv[:3, :3], img_off=off,
+                img_w=img.shape[1], img_h=img.shape[0]))
         else:
             warnings.warn(f"light {lr.type!r} not yet supported; skipped")
 
@@ -866,6 +938,13 @@ def flatten(desc: SceneDescription, scene_dir: str = ".") -> FlatScene:
         twosided=np.asarray([r["twosided"] for r in light_rows], bool),
         cos_total=np.asarray([r["cos_total"] for r in light_rows], np.float32),
         cos_falloff=np.asarray([r["cos_falloff"] for r in light_rows], np.float32),
+        w2l=np.asarray([r.get("w2l", np.eye(3)) for r in light_rows],
+                       np.float32).reshape(-1, 3, 3),
+        img_off=np.asarray([r.get("img_off", -1) for r in light_rows], np.int32),
+        img_w=np.asarray([r.get("img_w", 0) for r in light_rows], np.int32),
+        img_h=np.asarray([r.get("img_h", 0) for r in light_rows], np.int32),
+        img=(np.concatenate([i.reshape(-1, 3) for i in light_imgs])
+             if light_imgs else np.zeros((1, 3), np.float32)),
     )
 
     # 4. camera / film / sampler / integrator configs
@@ -877,8 +956,10 @@ def flatten(desc: SceneDescription, scene_dir: str = ".") -> FlatScene:
     return FlatScene(tris, spheres, mats.finalize(), lights, camera, film,
                      sampler, integ, desc.accelerator_name,
                      desc.accelerator_params,
-                     media=dict(desc.media), media_order=media_order,
-                     camera_medium=camera_medium)
+                     textures=tex_table.arrays(),
+                     media=dict(desc.media), env_map=env_state["map"],
+                     env_light_id=env_state["id"], env_w2l=env_state["w2l"],
+                     media_order=media_order, camera_medium=camera_medium)
 
 
 def with_resolution(scene: FlatScene, xres: int, yres: int) -> FlatScene:
@@ -954,8 +1035,8 @@ def _camera_config(desc: SceneDescription, film: FilmConfig,
         warnings.warn(f"camera {name!r} not yet supported; using perspective")
         ctype = CAM_PERSPECTIVE
     lens_data = lens_z = None
-    if ctype in (CAM_REALISTIC, CAM_ENVIRONMENT):
-        raise _later(f"camera {name!r}", "3 (environment) / 10 (realistic)")
+    if ctype == CAM_REALISTIC:
+        raise _later(f"camera {name!r}", "9")
     fov = p.find_one_float("fov", 90.0)
     aspect = p.find_one_float("frameaspectratio", film.xres / film.yres)
     sw = p.find_floats("screenwindow")

@@ -170,3 +170,111 @@ def tables_as_numpy(ds, st):
     fields = {k: np.asarray(v) for k, v in ds._asdict().items()
               if v is not None}
     return fields, dict(st._asdict())
+
+
+def _write_appearance_maps(out_dir: str, tex_res: int, env_res, gonio_res,
+                          seed: int = 5) -> dict:
+    """Write the maps of `textured_museum` as PFM files under out_dir, made
+    with numpy from `seed`: a floor texture (tex_res x tex_res: tiles with
+    fine stripes, so that the MIP levels differ), an equirect sky (env_res =
+    (width, height): a dim gradient with a small bright sun disc, so that
+    importance sampling matters) and a goniometric map (gonio_res: bands
+    over theta and phi). Returns their file names."""
+    import os
+
+    from tpupt_torch.utils.imageio import write_pfm
+
+    rng = np.random.default_rng(seed)
+    n = tex_res
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float32) / n
+    tiles = (np.floor(xx * 8) + np.floor(yy * 8)) % 2
+    stripes = 0.5 + 0.5 * np.sin(xx * n * 0.9 + 3.0 * yy)
+    base = rng.uniform(0.3, 0.7, 3).astype(np.float32)
+    floor = (base * (0.6 + 0.3 * tiles[..., None])
+             * (0.8 + 0.2 * stripes[..., None])).astype(np.float32)
+    ew, eh = env_res
+    v, u = np.mgrid[0:eh, 0:ew].astype(np.float32)
+    theta = (v + 0.5) / eh * np.pi
+    phi = (u + 0.5) / ew * 2 * np.pi
+    d = np.stack([np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi),
+                  np.cos(theta)], -1)
+    sun = np.array([np.sin(0.7) * np.cos(1.1), np.sin(0.7) * np.sin(1.1),
+                    np.cos(0.7)], np.float32)
+    sky = np.where(d[..., 2:] > 0, [0.35, 0.45, 0.7], [0.08, 0.07, 0.06])
+    env = (sky * (0.6 + 0.4 * np.abs(d[..., 2:]))).astype(np.float32)
+    env[d @ sun > np.cos(0.04)] = [900.0, 820.0, 700.0]
+    gw, gh = gonio_res
+    gv, gu = np.mgrid[0:gh, 0:gw].astype(np.float32)
+    gon = 0.2 + 0.8 * (0.5 + 0.5 * np.cos(gv / gh * 6 * np.pi)
+                       * np.cos(gu / gw * 4 * np.pi))
+    gon = np.repeat(gon[..., None], 3, -1).astype(np.float32)
+    names = {"floor": "floor.pfm", "env": "env.pfm", "gonio": "gonio.pfm"}
+    for key, img in (("floor", floor), ("env", env), ("gonio", gon)):
+        write_pfm(os.path.join(out_dir, names[key]), img)
+    return names
+
+
+def textured_museum(out_dir: str, tex_res: int = 2048, env_res=(2048, 1024),
+                    gonio_res=(256, 128), seed: int = 5, **size) -> str:
+    """tools/genscene.py's museum (`size`: grid, seg, rings) with its
+    appearance made real: an imagemap Kd on the floor (`float uv`, uscale /
+    vscale 4, so that grazing views pick coarse MIP levels and the
+    anisotropic taps), a closed-form antialiased checkerboard on the back
+    wall, marble Kd and wrinkled (turbulence) Ks on the statues, and in
+    place of the distant light an environment-mapped infinite light and a
+    goniometric light; the ceiling's area light stays. Writes
+    textured_museum.pbrt beside museum.pbrt and returns its path."""
+    import os
+    import re
+
+    from tpupt_torch.tools import genscene
+
+    path = genscene.museum(out_dir, **size)
+    maps = _write_appearance_maps(out_dir, tex_res, env_res, gonio_res, seed)
+    lines = open(path).read().splitlines()
+    out = []
+    i = 0
+    while i < len(lines):
+        line = lines[i]
+        if line.startswith('LightSource "distant"'):
+            out += [
+                f'LightSource "infinite" "string mapname" ["{maps["env"]}"] '
+                '"rgb L" [1 1 1]',
+                "AttributeBegin",
+                "  Translate 0 -4 4.5",
+                f'  LightSource "goniometric" "rgb I" [40 38 34] '
+                f'"string mapname" ["{maps["gonio"]}"]',
+                "AttributeEnd"]
+        elif line == "# floor + back wall":
+            out += [
+                line,
+                f'Texture "floor" "spectrum" "imagemap" "string filename" '
+                f'["{maps["floor"]}"] "float uscale" [4] "float vscale" [4]',
+                'Texture "wall" "spectrum" "checkerboard" "float uscale" [16] '
+                '"float vscale" [16] "rgb tex1" [0.7 0.68 0.62] '
+                '"rgb tex2" [0.25 0.24 0.22]',
+                'Texture "marble" "spectrum" "marble" "float scale" [1.5]',
+                'Texture "wrinkled" "spectrum" "wrinkled"',
+                'Material "matte" "texture Kd" "floor"']
+            i += 1  # the untextured floor material
+            for k in range(2):  # floor, then the back wall
+                if k == 1:
+                    out.append('Material "matte" "texture Kd" "wall"')
+                out.append(lines[i + 1])
+                out.append(lines[i + 2] + ' "float uv" [0 0 1 0 1 1 0 1]')
+                i += 2
+        elif line.startswith('Material "plastic"'):
+            out.append(re.sub(r'"rgb Kd" \[[^\]]*\] "rgb Ks" \[[^\]]*\]',
+                              '"texture Kd" "marble" "texture Ks" "wrinkled"',
+                              line))
+        else:
+            out.append(line)
+        i += 1
+    text = "\n".join(out) + "\n"
+    if ('"texture Kd" "marble"' not in text or '"infinite"' not in text
+            or text.count('"float uv"') != 2):
+        raise ValueError("the museum's scene file changed: cannot texture it")
+    dst = os.path.join(out_dir, "textured_museum.pbrt")
+    with open(dst, "w") as f:
+        f.write(text)
+    return dst
