@@ -46,14 +46,24 @@ K1, against the plain version on the crop, takes `value_and_grad` with
 respect to `mat_kd`, `light_L`, `tex_atlas` and `env_map` (the film is
 linear in the two emitter tables jointly) and three training steps toward
 its image with the environment map halved.
+The `materials` phase renders `tools/testscenes.py` `materials_museum`
+(the small museum's statues in Disney, mix, Fourier, subsurface,
+kdsubsurface and plastic, a tuft of hair curves, the sobol sampler) at
+1024x1024 through K1, which each vertex now launches four times (closest
+hit, NEE shadow, the subsurface probe and the exit's shadow ray), beside
+the untextured museum in the same run and against the plain version on the
+crop; takes `value_and_grad` with respect to the bench's four tables; and
+holds the five new samplers' values on the card against the CPU's, bit for
+bit, on a grid of 64x64 pixels, 16 samples and 64 dimensions.
 There is no fallback: without a CUDA device, without the `tpupt_torch`
 package beside it, with a kernel that does not build, launch or agree, or
 with any failed check, it exits with a code other than 0 and prints no
 result line.
 
 Output: one JSON object per phase (`env`, `kernels`, `main_path`,
-`gradients`, `appearance`), then the card's name and power limit, the `{"kernels": [...]}`
-line, and last `{"ok": true, "device": {...}}`.
+`gradients`, `appearance`, `materials`), then the card's name and power
+limit, the `{"kernels": [...]}` line, and last `{"ok": true, "device":
+{...}}`.
 """
 
 from __future__ import annotations
@@ -85,7 +95,8 @@ from tpupt_torch.ops import traverse_treelets as tt
 from tpupt_torch.ops import traverse_wide as tw
 from tpupt_torch.parallel.mesh import train_step_fn
 from tpupt_torch.scene.device import build_scene_bvh, upload, with_alt_accel
-from tpupt_torch.scene.flatten import flatten, with_resolution
+from tpupt_torch.scene.flatten import (MAT_KDSUBSURFACE, MAT_SUBSURFACE,
+                                       flatten, with_resolution)
 from tpupt_torch.scene.loader import parse_file, parse_string
 from tpupt_torch.scene.params import ParamSet
 from tpupt_torch.textures.textures import ALL_TYPES
@@ -132,6 +143,20 @@ APPEAR_MAPS = dict(tex_res=2048, env_res=(2048, 1024), gonio_res=(256, 128))
 APPEAR_PARAMS = ("mat_kd", "light_L", "tex_atlas", "env_map")
 SPP_APPEAR = 2
 APPEAR_TRAIN_LR = 0.05
+# the materials phase: tools/testscenes.py materials_museum at MUSEUM_65K's
+# size with MATERIALS_HAIRS hair curves, SPP_MATERIALS samples through K1,
+# which a vertex launches 4 times (closest hit, NEE shadow, the subsurface
+# probe and exit shadow ray); value_and_grad of bench_loss with respect to
+# GRAD_PARAMS over SPP_MATERIALS samples, sum(light_L * g) within
+# MATERIALS_LINEARITY_RTOL of the loss; the new samplers' values on the
+# card against the CPU's, bit for bit, on SAMPLER_GRID (pixels a side,
+# sample indices, dimensions)
+MATERIALS_HAIRS = 256
+SPP_MATERIALS = 2
+MATERIALS_LINEARITY_RTOL = 1e-5
+NEW_SAMPLERS = ("sobol", "02sequence", "lowdiscrepancy", "maxmindist",
+                "stratified")
+SAMPLER_GRID = (64, 16, 64)
 # kd-tree, restricted BSP with 3 / 7 / 13 directions, one tree with a
 # direction per node and one with kd nodes mixed in: (name, nbDirections)
 KD_TREES = [("kdtree", None), ("rbsp", 3), ("rbsp", 7), ("rbsp", 13),
@@ -477,13 +502,14 @@ def edge_cases(name, ds, st, o, d, tmax, seed):
          tmax[:cut].contiguous())]
 
 
-def drive(renderer, per_call: dict, spp):
+def drive(renderer, per_call: dict, spp, calls_per_vertex: int = 2):
     """Render `spp` samples through the entry point with the launch counts
     set to 0 just before and read just after; `per_call` says how often
     each kernel launches in one traversal call (every other kernel must not
-    launch at all). Returns (film, ms per spp, launches of every kernel)."""
+    launch at all), `calls_per_vertex` how many traversal calls a path
+    vertex makes. Returns (film, ms per spp, launches of every kernel)."""
     depth = renderer.scene.integrator.max_depth
-    calls = 2 * (depth + 1) * renderer.n_batches * spp
+    calls = calls_per_vertex * (depth + 1) * renderer.n_batches * spp
     renderer.render(spp=1)   # warm-up outside the counted run
     torch.cuda.synchronize()
     zero_launches()
@@ -973,6 +999,10 @@ def main(argv) -> int:
     look = appearance(dev, with_profile, (sc65, tables65))
     emit({"phase": "appearance", **look})
 
+    # ---- materials: pbrt-v3's other materials and the new samplers
+    mats = materials(dev, with_profile, (sc65, tables65))
+    emit({"phase": "materials", **mats})
+
     kernels = []
     # K1 at the shape where the main path launches it: the 63,558-triangle
     # museum's secondary rays (its 1M-museum figures beside them)
@@ -1010,6 +1040,9 @@ def main(argv) -> int:
         kernels[-1]["appearance_launches"] = look["launches"][kind]
         kernels[-1]["appearance_fwd_bwd_launches"] = (
             look["gradients"]["launches"][kind])
+        kernels[-1]["materials_launches"] = mats["launches"][kind]
+        kernels[-1]["materials_fwd_bwd_launches"] = (
+            mats["gradients"]["launches"][kind])
         if kind == "traverse_wide":
             w1m = shape["traverse_wide"]
             kernels[-1]["at_museum_1m"] = {
@@ -1054,6 +1087,8 @@ def main(argv) -> int:
             "rays_per_launch": shape["rays"],
             "appearance_launches": look["launches"][kind],
             "appearance_fwd_bwd_launches": look["gradients"]["launches"][kind],
+            "materials_launches": mats["launches"][kind],
+            "materials_fwd_bwd_launches": mats["gradients"]["launches"][kind],
             "per": ("one launch" if kind == "bin_rays"
                     else "one driver call: pass 0 + pass 1, two launches"),
             "tolerance": "every output equal to the bit"})
@@ -1104,43 +1139,9 @@ def appearance(dev, with_profile, untextured) -> dict:
     plain = against_plain_render(scene, tables, "traverse_wide", dev)
 
     # value_and_grad with respect to the appearance tables
-    params = {k: getattr(ds, k) for k in APPEAR_PARAMS}
-    torch.cuda.reset_peak_memory_stats()
-    bytes_before = torch.cuda.memory_allocated()
-    zero_launches()
-    step_ms, values, linearity = [], [], []
-    for s in range(SPP_APPEAR):
-        t0 = time.time()
-        value, grads, _ = r.value_and_grad(bench_loss, params, s)
-        torch.cuda.synchronize()
-        step_ms.append((time.time() - t0) * 1e3)
-        v = float(value)
-        for k, g in grads.items():
-            if not bool(torch.isfinite(g).all()) or not float(g.abs().max()) > 0:
-                fail(f"appearance gradients: d loss / d {k} is not finite or 0")
-        lin = float((grads["light_L"] * params["light_L"]).sum()
-                    + (grads["env_map"] * params["env_map"]).sum())
-        if not abs(lin - v) <= LINEARITY_RTOL * abs(v):
-            fail(f"appearance gradients: sum(light_L * g) + sum(env_map * g) "
-                 f"= {lin}, loss {v}")
-        values.append(v)
-        linearity.append(lin)
-    g_counts = launch_counts()
-    want = 2 * (scene.integrator.max_depth + 1) * r.n_batches * SPP_APPEAR
-    for k, c in g_counts.items():
-        if c != (want if k == "traverse_wide" else 0):
-            fail(f"appearance value_and_grad launched {k} {c} times")
-    g_ms = sum(step_ms) / SPP_APPEAR
-    grad_line = {
-        "params": APPEAR_PARAMS, "spp": SPP_APPEAR,
-        "fwd_bwd_ms_per_spp": g_ms, "fwd_bwd_ms_each_spp": step_ms,
-        "fwd_bwd_camera_rays_per_s": MAIN_RES * MAIN_RES / (g_ms * 1e-3),
-        "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
-        "allocated_bytes_before": bytes_before, "launches": g_counts,
-        "loss": values, "emitters_times_grad": linearity,
-        "linearity_rtol": LINEARITY_RTOL,
-        "grad_abs_max": {k: float(g.abs().max()) for k, g in grads.items()}}
-    del grads
+    grad_line = emitter_grads(r, {k: getattr(ds, k) for k in APPEAR_PARAMS},
+                              SPP_APPEAR, ("light_L", "env_map"),
+                              LINEARITY_RTOL, "appearance")
 
     # three training steps toward the image with env_map halved
     target_r = Renderer(scene, device=dev, tables=(
@@ -1190,6 +1191,179 @@ def appearance(dev, with_profile, untextured) -> dict:
         "train": {"params": APPEAR_PARAMS, "lr": APPEAR_TRAIN_LR,
                   "target": "env_map * 0.5", "loss_each_step": losses,
                   "ms_each_step": t_ms},
+        **profiled}
+
+
+def emitter_grads(r, params, spp, emitters, rtol, tag,
+                  calls_per_vertex: int = 2) -> dict:
+    """`value_and_grad` of `bench_loss` with respect to `params` over `spp`
+    samples (one call a sample) with the launch counts set to 0 just before
+    and read just after. Fails unless every gradient is finite and nonzero,
+    sum over the `emitters` tables of table * gradient equals the loss to
+    `rtol` (the film is linear in them jointly), and K1 launched
+    `calls_per_vertex` times a vertex of every batch and nothing else did."""
+    torch.cuda.reset_peak_memory_stats()
+    bytes_before = torch.cuda.memory_allocated()
+    zero_launches()
+    step_ms, values, linearity = [], [], []
+    for s in range(spp):
+        t0 = time.time()
+        value, grads, _ = r.value_and_grad(bench_loss, params, s)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t0) * 1e3)
+        v = float(value)
+        for k, g in grads.items():
+            if not bool(torch.isfinite(g).all()) or not float(g.abs().max()) > 0:
+                fail(f"{tag} gradients: d loss / d {k} is not finite or 0")
+        lin = float(sum((grads[k] * params[k]).sum() for k in emitters))
+        if not abs(lin - v) <= rtol * abs(v):
+            fail(f"{tag} gradients: sum of {emitters} * g = {lin}, loss {v}")
+        values.append(v)
+        linearity.append(lin)
+    counts = launch_counts()
+    want = (calls_per_vertex * (r.scene.integrator.max_depth + 1)
+            * r.n_batches * spp)
+    for k, c in counts.items():
+        if c != (want if k == "traverse_wide" else 0):
+            fail(f"{tag} value_and_grad launched {k} {c} times")
+    ms = sum(step_ms) / spp
+    return {
+        "params": tuple(params), "spp": spp,
+        "fwd_bwd_ms_per_spp": ms, "fwd_bwd_ms_each_spp": step_ms,
+        "fwd_bwd_camera_rays_per_s": MAIN_RES * MAIN_RES / (ms * 1e-3),
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "allocated_bytes_before": bytes_before, "launches": counts,
+        "loss": values, "emitters": emitters,
+        "emitters_times_grad": linearity, "linearity_rtol": rtol,
+        "grad_abs_max": {k: float(g.abs().max()) for k, g in grads.items()}}
+
+
+def materials(dev, with_profile, untextured) -> dict:
+    """The materials phase: tools/testscenes.py `materials_museum` at
+    MUSEUM_65K's size through the entry points (parse_file -> flatten ->
+    upload -> Renderer), SPP_MATERIALS samples at MAIN_RES through K1 with
+    the launch counts set to 0 just before and read just after (four
+    traversal calls a vertex: the subsurface probe and exit shadow ray go
+    through K1 too), beside `untextured` = (scene, tables), the plain
+    museum, rendered by the same settings in this run; held against the
+    plain-version render on PLAIN_CROP; `value_and_grad` of `bench_loss`
+    with respect to GRAD_PARAMS over SPP_MATERIALS samples (finite
+    gradients, linearity in light_L, K1's launches); the new samplers on
+    the card against the CPU. `with_profile` adds one sample's device
+    launches and busy share beside one of the plain museum."""
+    from tpupt_torch.materials import bssrdf_table, fourier
+    from tpupt_torch.samplers.samplers import WavefrontSampler
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = testscenes.materials_museum(tmp, n_hairs=MATERIALS_HAIRS,
+                                           **MUSEUM_65K)
+        t_gen = time.time() - t0
+        bssrdf_table.compute_beam_diffusion_table.cache_clear()
+        t0 = time.time()
+        scene = flatten(parse_file(path), tmp)
+        t_flatten = time.time() - t0
+        t0 = time.time()
+        fourier.read_bsdf_file(os.path.join(tmp, "statue.bsdf"))
+        t_fourier = time.time() - t0
+    # the beam-diffusion tables flatten built (one per subsurface eta),
+    # built again alone to time them
+    m = scene.materials
+    etas = sorted({float(e) for e, t in zip(m.eta[:, 0], m.type)
+                   if t in (MAT_SUBSURFACE, MAT_KDSUBSURFACE)})
+    bssrdf_table.compute_beam_diffusion_table.cache_clear()
+    t0 = time.time()
+    for eta in etas:
+        bssrdf_table.compute_beam_diffusion_table(eta)
+    t_tables = time.time() - t0
+    t0 = time.time()
+    tables = upload(scene, light_strategy=scene.integrator.light_strategy,
+                    device=dev)
+    torch.cuda.synchronize()
+    t_upload = time.time() - t0
+    ds, st = tables
+    want = {"disney", "hair", "mix", "sss", "fourier"}
+    if (st.two_level or st.mat_features != want or not st.has_bssrdf_table
+            or st.fourier is None or scene.sampler.name != "sobol"):
+        fail(f"the materials museum's tables are not what it asks for: {st}")
+    r = Renderer(scene, device=dev, tables=tables)
+    film, ms, counts = drive(r, {"traverse_wide": 1}, SPP_MATERIALS,
+                             calls_per_vertex=4)
+    fin, lum = check_image(r, film, "materials_museum")
+    img = r.image(film)
+    del film
+    r_plain = Renderer(untextured[0], device=dev, tables=untextured[1])
+    _, ms_plain, _ = drive(r_plain, {"traverse_wide": 1}, 1)
+    plain = against_plain_render(scene, tables, "traverse_wide", dev)
+
+    # value_and_grad with respect to the bench's tables
+    grad_line = emitter_grads(r, {k: getattr(ds, k) for k in GRAD_PARAMS},
+                              SPP_MATERIALS, ("light_L",),
+                              MATERIALS_LINEARITY_RTOL, "materials",
+                              calls_per_vertex=4)
+
+    # the new samplers: every value on the grid, card against CPU
+    res, n_s, n_d = SAMPLER_GRID
+    px, py, si = torch.meshgrid(torch.arange(res), torch.arange(res),
+                                torch.arange(n_s), indexing="ij")
+    lanes = [x.reshape(-1).to(torch.int32) for x in (px, py, si)]
+    t0 = time.time()
+    sampler_values = 0
+    for name in NEW_SAMPLERS:
+        for spp in (16, 5):
+            sm = WavefrontSampler(name, res, res, spp, seed=3)
+            on_card = [x.to(dev) for x in lanes]
+            outs = [(sm.dim(*on_card, d), sm.dim(*lanes, d))
+                    for d in range(n_d)]
+            outs += list(zip(sm.camera_jitter(*on_card),
+                             sm.camera_jitter(*lanes)))
+            for k, (a, b) in enumerate(outs):
+                a = a.cpu().contiguous()
+                if not torch.equal(a.view(torch.int32),
+                                   b.contiguous().view(torch.int32)):
+                    fail(f"sampler {name} (spp {spp}): output {k} on the card "
+                         "differs from the CPU's")
+                sampler_values += a.numel()
+    t_samplers = time.time() - t0
+    profiled = {}
+    if with_profile:
+        profiled = {"profile_materials_spp": profile_one_spp(
+                        lambda: r.render(spp=1)),
+                    "profile_untextured_spp": profile_one_spp(
+                        lambda: r_plain.render(spp=1))}
+    return {
+        "scene": "tools/testscenes.py materials_museum", **MUSEUM_65K,
+        "hairs": MATERIALS_HAIRS, "triangles": st.n_tris,
+        "two_level": st.two_level, "mat_features": sorted(st.mat_features),
+        "mix_features": sorted(st.mix_features),
+        "material_rows": int(ds.mat_type.shape[0]),
+        "fourier": st.fourier, "sampler": scene.sampler.name,
+        "host_s": {"write_scene_ply_and_bsdf": round(t_gen, 2),
+                   "parse_flatten_with_tables_and_bsdf": round(t_flatten, 2),
+                   "beam_diffusion_tables_alone": round(t_tables, 2),
+                   "subsurface_etas": etas,
+                   "fourier_load_alone": round(t_fourier, 4),
+                   "bvh_upload_sss_pack": round(t_upload, 2)},
+        "resolution": [MAIN_RES, MAIN_RES],
+        "max_depth": scene.integrator.max_depth, "spp": SPP_MATERIALS,
+        "batches": r.n_batches, "ms_per_spp": ms,
+        "camera_rays_per_s": MAIN_RES * MAIN_RES / (ms * 1e-3),
+        "untextured_museum_ms_per_spp": ms_plain,
+        "untextured_museum_camera_rays_per_s":
+            MAIN_RES * MAIN_RES / (ms_plain * 1e-3),
+        "launches": counts,
+        "launches_per_spp": {"expected_closest_and_nee_shadow":
+                             2 * (scene.integrator.max_depth + 1) * r.n_batches,
+                             "expected_subsurface_probe_and_shadow":
+                             2 * (scene.integrator.max_depth + 1) * r.n_batches,
+                             "traverse_wide":
+                             counts["traverse_wide"] // SPP_MATERIALS},
+        "finite_pixel_share": fin, "mean_luminance": lum,
+        "image_mean_rgb": [float(x) for x in img.reshape(-1, 3).mean(0)],
+        **plain, "gradients": grad_line,
+        "samplers": {"names": NEW_SAMPLERS, "grid": SAMPLER_GRID,
+                     "values_compared_bit_for_bit": sampler_values,
+                     "seconds": round(t_samplers, 2)},
         **profiled}
 
 

@@ -36,11 +36,16 @@ import numpy as np
 import pytest
 import torch
 
+# imported here, outside any trace: its module constant float(jnp.log(1.2))
+# fails when the first import happens inside the JAX package's fori_loop
+import tpupt.materials.bssrdf  # noqa: F401
 from tpupt.accel import traverse as jax_trav
 from tpupt.cameras.perspective import generate_rays as jax_generate_rays
 from tpupt.integrators.path import Renderer as JaxRenderer
 from tpupt.integrators.path import path_li as jax_path_li
+from tpupt.materials import fourier as jax_fourier
 from tpupt.scene.flatten import flatten as jax_flatten
+from tpupt.scene.flatten import with_resolution as jax_with_resolution
 from tpupt.scene.loader import parse_file as jax_parse_file
 from tpupt.scene.loader import parse_string as jax_parse_string
 from tpupt_torch.integrators import path as tpath
@@ -49,7 +54,7 @@ from tpupt_torch.integrators.path import Renderer
 from tpupt_torch.materials import bsdf as tbsdf
 from tpupt_torch.parallel.mesh import PARAMS, train_step_fn
 from tpupt_torch.scene.device import from_numpy
-from tpupt_torch.scene.flatten import flatten
+from tpupt_torch.scene.flatten import MAT_HAIR, flatten, with_resolution
 from tpupt_torch.scene.loader import parse_file, parse_string
 from tpupt_torch.tools import genscene, testscenes
 
@@ -67,6 +72,8 @@ BENCH = ("mat_kd", "mat_ks", "mat_roughness", "light_L")
 # the environment map and the texture atlas: one-row dummies, never read, in
 # a scene without an environment map or textures; CORE is the rest
 APPEARANCE = ("env_map", "tex_atlas")
+# the small materials museum: 9 statues, so every family is in it
+MATERIALS_SMALL = dict(n_hairs=8, grid=3, seg=8, rings=4)
 CORE = tuple(k for k in PARAMS if k not in APPEARANCE)
 
 # test_differentiable's scenes; the two-material one with the halton
@@ -94,12 +101,26 @@ def _pair(name, tmp_path=None):
     """(jax scene, jax Renderer, port scene, port Renderer) on one table set.
     "appearance": test_torch_textures' scene of every texture class under an
     environment map, a constant infinite, a goniometric and a projection
-    light, at 16x16, depth 2."""
+    light, at 16x16, depth 2. "materials": the small tools/testscenes.py
+    materials_museum (Disney, mix, Fourier, subsurface, kdsubsurface and
+    hair rows, the sobol sampler) at 32x32 (one batch; at 16x16 its few
+    plastic lanes give mat_ks a gradient of 1e-15), depth 2."""
     if name == "appearance":
         path = write_all_classes_scene(str(tmp_path))
         d = os.path.dirname(path)
-        sj = _adjust(jax_flatten(jax_parse_file(path), d), 2, 16)
-        sp = _adjust(flatten(parse_file(path), d), 2, 16)
+        # with_resolution: the whole view (the file is 1024x1024)
+        sj = _adjust(jax_with_resolution(
+            jax_flatten(jax_parse_file(path), d), 32, 32), 2, None)
+        sp = _adjust(with_resolution(flatten(parse_file(path), d), 32, 32),
+                     2, None)
+    elif name == "materials":
+        path = testscenes.materials_museum(str(tmp_path), **MATERIALS_SMALL)
+        d = os.path.dirname(path)
+        # with_resolution: the whole view (the file is 1024x1024)
+        sj = _adjust(jax_with_resolution(
+            jax_flatten(jax_parse_file(path), d), 32, 32), 2, None)
+        sp = _adjust(with_resolution(flatten(parse_file(path), d), 32, 32),
+                     2, None)
     elif name == "museum":
         path = genscene.museum(str(tmp_path), grid=2, seg=8, rings=4)
         d = os.path.dirname(path)
@@ -126,10 +147,30 @@ def _jitted_walkers(st):
 
 def _jax_walkers(st):
     """The JAX package's XLA walkers (its `pick_traversal` off the TPU), each
-    compiled once for these statics."""
-    closest, occluded = _jitted_walkers(st)
+    compiled once for these statics (their Fourier sizes, a dict the
+    walkers do not read, left out of the cache key)."""
+    closest, occluded = _jitted_walkers(st._replace(fourier=None))
     return (lambda ds, st_, o, d, tmax, **kw: closest(ds, o, d, tmax),
             lambda ds, st_, o, d, tmax, **kw: occluded(ds, o, d, tmax))
+
+
+def eager_fourier_loops(monkeypatch):
+    """Run the JAX package's Fourier series loops as Python loops, the same
+    operations in the same order: eagerly, `jax.lax.fori_loop` compiles its
+    body at every call, and fourier_f builds a new body for each of its 16
+    knot pairs (512 compiles, 93 of 137 s of one eager forward of the
+    materials scene). Its loops have Python-int bounds; nothing else of
+    the module's `jax` is used but `lax.cummax`."""
+    import types
+
+    def fori_loop(lo, hi, body, init):
+        for i in range(lo, hi):
+            init = body(i, init)
+        return init
+
+    monkeypatch.setattr(jax_fourier, "jax", types.SimpleNamespace(
+        lax=types.SimpleNamespace(fori_loop=fori_loop,
+                                  cummax=jax.lax.cummax)))
 
 
 def _params(ds, names=CORE):
@@ -147,16 +188,21 @@ def _close_grads(g_port, g_jax, what, tol=GRAD_TOL):
         assert err <= tol * scale, f"{what} {k}: {err} > {tol} * {scale}"
 
 
-@pytest.mark.parametrize("name", list(SCENES) + ["appearance"])
-def test_per_ray_gradients_match_jax(name, tmp_path):
+@pytest.mark.parametrize("name", list(SCENES) + ["appearance", "materials"])
+def test_per_ray_gradients_match_jax(name, tmp_path, monkeypatch):
     """d/dtheta of sum(W * L) for a fixed random W, L the per-ray radiance
     of path_li over the renderer's camera rays of sample 0. On the
-    "appearance" scene with respect to the bench's four tables, the texture
-    atlas and the environment map, whose gathers' cotangents add up per
-    texel (its camera gradients are not compared: they differ from
-    jax.grad's beyond GRAD_TOL there, ROADMAP.md section 3)."""
+    "appearance" scene with respect to all eight tables: the bench's four,
+    the texture atlas and the environment map, whose gathers' cotangents
+    add up per texel, and the camera matrices (whose gradient reaches the
+    noise textures; test_noise_abs_takes_the_jax_tie_rule). On the
+    "materials" scene with respect to the bench's four tables; the JAX
+    package's mat_kd gradient is NaN on the rows of materials other than
+    hair (test_hair_lobes_of_other_lanes_make_the_jax_kd_gradient_nan), so
+    mat_kd is compared on its other rows."""
+    eager_fourier_loops(monkeypatch)
     sj, rj, sp, rt = _pair(name, tmp_path)
-    names = BENCH + APPEARANCE if name == "appearance" else CORE
+    names = {"appearance": PARAMS, "materials": BENCH}.get(name, CORE)
     assert rt.n_batches == 1 and rj.n_batches == 1
     n = rt.batch
     isect, isect_p = _jax_walkers(rj.st)
@@ -193,6 +239,14 @@ def test_per_ray_gradients_match_jax(name, tmp_path):
                              allow_unused=True)
     gt = {k: g if g is not None else torch.zeros_like(leaves[k])
           for k, g in zip(leaves, gt)}
+    if name == "materials":
+        kd_j = np.asarray(gj.pop("mat_kd"))
+        nan_rows = ~np.isfinite(kd_j).all(-1)
+        assert nan_rows.any() and not (
+            rt.ds.mat_type.numpy()[nan_rows] == MAT_HAIR).any()
+        assert torch.isfinite(gt["mat_kd"]).all()
+        _close_grads({"mat_kd": gt["mat_kd"][torch.from_numpy(~nan_rows)]},
+                     {"mat_kd": kd_j[~nan_rows]}, name)
     _close_grads(gt, gj, name)
     if name == "appearance":
         # every material's Kd and Ks is a texture there: their rows get none
@@ -380,3 +434,120 @@ def test_value_and_grad_refuses_other_fields_and_needs_a_card():
     with pytest.raises(NotImplementedError, match="item 13"):
         train_step_fn(sc, ["cpu", "cpu"], np.zeros((12, 12, 3), np.float32),
                       device="cpu")
+
+
+def test_hair_lobes_of_other_lanes_make_the_jax_kd_gradient_nan():
+    """The JAX package evaluates its hair lobes on every lane, with each
+    row's own extra[0:3] as (beta_m, beta_n, alpha): on a row whose
+    extra[1] is 0 (a matte, plastic, metal or Fourier row; a Disney row
+    without sheen) the logistic scale is 0 and the azimuthal term NaN, and
+    that NaN times the discarded lane's zero cotangent reaches kd (sigma_a,
+    through the attenuation). Its kd gradient is NaN on exactly those rows;
+    the port evaluates the other lanes with the default fiber, and its
+    gradient is finite there and equal on the hair rows."""
+    from tpupt.materials import bsdf as jb
+
+    txt = _SCENE2.replace('"02sequence"', '"halton"').replace(
+        'WorldEnd', 'Material "hair" "float beta_n" [0.4]\n'
+        'Shape "trianglemesh" "point P" [0 0 0  1 0 0  0 1 0] '
+        '"integer indices" [0 1 2]\nWorldEnd')
+    sj = jax_flatten(jax_parse_string(txt))
+    rj = JaxRenderer(sj)
+    dt, st = from_numpy(*testscenes.tables_as_numpy(rj.ds, rj.st),
+                        device="cpu")
+    types = dt.mat_type.numpy()
+    gen = np.random.default_rng(4)
+    n = 64 * len(types)
+    mat = np.repeat(np.arange(len(types), dtype=np.int32), 64)
+    wo, wi = (gen.normal(0, 1, (n, 3)).astype(np.float32) for _ in range(2))
+    wo /= np.linalg.norm(wo, axis=-1, keepdims=True)
+    wi /= np.linalg.norm(wi, axis=-1, keepdims=True)
+    uv = gen.random((n, 2)).astype(np.float32)
+    feats = frozenset({"hair"})
+
+    def jax_f(kd):
+        mp = jb.gather_mat_params(rj.ds._replace(mat_kd=kd),
+                                  jnp.asarray(mat), uv=jnp.asarray(uv))
+        f, pdf = jb.eval_pdf(mp, jnp.asarray(wo), jnp.asarray(wi), feats)
+        return f.sum() + pdf.sum()
+
+    gj = np.asarray(jax.grad(jax_f)(rj.ds.mat_kd))
+    kd = dt.mat_kd.clone().requires_grad_()
+    mp = tbsdf.gather_mat_params(dt._replace(mat_kd=kd), torch.from_numpy(mat),
+                                 uv=torch.from_numpy(uv))
+    f, pdf = tbsdf.eval_pdf(mp, torch.from_numpy(wo), torch.from_numpy(wi),
+                            feats)
+    (gt,) = torch.autograd.grad(f.sum() + pdf.sum(), kd)
+    zero_bn = dt.mat_extra.numpy()[:, 1] == 0
+    assert zero_bn.any() and (types == MAT_HAIR).any()
+    np.testing.assert_array_equal(~np.isfinite(gj).all(-1), zero_bn)
+    assert torch.isfinite(gt).all()
+    hair_rows = types == MAT_HAIR
+    _close_grads({"mat_kd": gt[torch.from_numpy(hair_rows)]},
+                 {"mat_kd": gj[hair_rows]}, "hair rows")
+
+
+def test_noise_abs_takes_the_jax_tie_rule():
+    """Gradient noise is exactly 0 on the lattice lines of its cells, so a
+    hit with two coordinates 0 (the appearance scene's centre pixel hits a
+    marble statue at x = z = 0) takes |noise| at a tie in every octave
+    whose scale keeps it there. jnp.abs's derivative at 0 is +1, torch.abs's
+    0; the port's turbulence and windy take the JAX package's rule, and
+    their gradients with respect to the point agree with jax.grad's there
+    (with torch.abs the sixth octave's term was missing)."""
+    from tpupt.textures import textures as jtex
+    from tpupt_torch.textures import textures as ttex
+
+    p = np.array([[0.0, 2.4529257, 0.0], [0.0, 1.25, 0.0],
+                  [0.3, 0.7, 0.1]], np.float32)
+    assert float(ttex.perlin(torch.tensor(p[:1] * 1.99 ** 5))) == 0.0
+    for octaves in (1, 6):
+        gj = np.asarray(jax.grad(lambda q: jtex.turbulence(
+            q, 0.5, octaves).sum())(jnp.asarray(p)))
+        pt = torch.from_numpy(p).requires_grad_()
+        (gt,) = torch.autograd.grad(ttex.turbulence(pt, 0.5, octaves).sum(),
+                                    pt)
+        np.testing.assert_allclose(gt.numpy(), gj, rtol=1e-5, atol=1e-6)
+    x = torch.zeros(2, requires_grad=True)
+    (g,) = torch.autograd.grad(ttex.abs_tie_up(x).sum(), x)
+    assert g.tolist() == [1.0, 1.0] == [float(jax.grad(jnp.abs)(0.0))] * 2
+
+
+def test_subsurface_probe_is_detached_in_the_port():
+    """The subsurface exit's probe ray starts at the hit point, which moves
+    with the camera. The JAX package hands its probe to the raw traversal
+    (integrators/path.py:665, materials/bssrdf.py:150), not to the detaching
+    wrapper, so jax.grad with respect to the camera matrices of a scene
+    with a subsurface material raises (reverse mode through its walker's
+    loop); with respect to the material and light tables the probe's inputs
+    carry no tangent and it differentiates (the materials case of
+    test_per_ray_gradients_match_jax). The port detaches every traversal
+    input, the probe's too (its replay requires it), and its camera
+    gradient on the same scene is finite and nonzero."""
+    from test_torch_materials import _SLAB
+
+    sj = jax_flatten(jax_parse_string(_SLAB))
+    rj = JaxRenderer(sj)
+    isect, isect_p = _jax_walkers(rj.st)
+    n = rj.batch
+
+    def jax_L(cam_to_world):
+        ds = rj.ds._replace(cam_to_world=cam_to_world)
+        o, d = jax_generate_rays(sj.camera.type, ds.raster_to_camera,
+                                 ds.cam_to_world,
+                                 jnp.stack([rj.px, rj.py], -1).astype(
+                                     jnp.float32) + 0.5,
+                                 jnp.zeros((n, 2)), 0.0, 1.0)
+        L, _ = jax_path_li(ds, rj.st, rj.sampler, 1, 1.0, rj.px, rj.py,
+                           jnp.uint32(0), o, d, isect=isect,
+                           isect_p=isect_p, unroll=True)
+        return L.sum()
+
+    with pytest.raises(ValueError, match="Reverse-mode differentiation"):
+        jax.grad(jax_L)(rj.ds.cam_to_world)
+    r = Renderer(flatten(parse_string(_SLAB)), device="cpu")
+    v, g, _ = r.value_and_grad(lambda f: f.rgb.sum(),
+                               {"cam_to_world": r.ds.cam_to_world})
+    assert r.st.mat_features == {"sss"} and float(v) > 0
+    assert torch.isfinite(g["cam_to_world"]).all()
+    assert float(g["cam_to_world"].abs().max()) > 0

@@ -88,6 +88,14 @@ def test_random_sampler_bit_equal():
 
 
 @pytest.mark.parametrize("name", ["sobol", "02sequence", "maxmindist", "stratified"])
-def test_unported_samplers_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchSampler(name, 8, 8, 4)
+def test_formerly_unported_samplers_bit_equal(name):
+    """The samplers the port refused before they were ported build and
+    give the JAX package's values to the bit on this file's random grid
+    (tests/test_torch_samplers_lowdiscrepancy.py holds them on a full one)."""
+    px, py, s = _grid(8)
+    sj = JaxSampler(name, 8, 8, 4, seed=2)
+    st = TorchSampler(name, 8, 8, 4, seed=2)
+    for d in (0, 1, 2, 7, 63):
+        a = sj.dim(jnp.asarray(px), jnp.asarray(py), jnp.asarray(s).astype(jnp.uint32), d)
+        b = st.dim(torch.from_numpy(px), torch.from_numpy(py), torch.from_numpy(s), d)
+        np.testing.assert_array_equal(_bits(a), _bits(b.numpy()))

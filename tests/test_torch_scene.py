@@ -3,6 +3,7 @@ give array-equal tables, and `from_numpy` carries the JAX package's tables
 across unchanged."""
 
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -61,6 +62,10 @@ def test_upload_tables_array_equal(name, strategy, tmp_path):
             # (None in the JAX package's tables of a BVH scene)
             assert getattr(ds_t, f).shape[0] == 1, f
             continue
+        if f == "sss_pack" and ds_j.sss_pack is None:
+            # no subsurface rows: None there, a one-row dummy here
+            assert tuple(ds_t.sss_pack.shape) == (1, 390)
+            continue
         _assert_same_bits(f, getattr(ds_j, f), getattr(ds_t, f).numpy())
     for f in SceneStatics._fields:
         if f in ALT_STATICS:   # the port's own; the JAX Renderer keeps them
@@ -69,6 +74,9 @@ def test_upload_tables_array_equal(name, strategy, tmp_path):
         if f == "tex_types":   # the port's own: the types materials name
             assert st_t.tex_types == present_types(
                 ds_j.tex_type, ds_j.mat_kd_tex, ds_j.mat_ks_tex)
+            continue
+        if f == "mix_features":   # the port's own: no mix rows here
+            assert st_t.mix_features == frozenset()
             continue
         assert getattr(st_j, f) == getattr(st_t, f), f
     assert st_j.two_level is False  # the JAX side took its single-level path
@@ -83,8 +91,9 @@ def test_from_numpy_carries_tables_across(tmp_path):
     for f in DeviceScene._fields:
         t = getattr(ds_t, f)
         assert isinstance(t, torch.Tensor) and t.device.type == "cpu"
-        if f in ALT_FIELDS:   # no tree in these tables: one-row dummies
-            assert t.shape[0] == 1, f
+        if f in ALT_FIELDS or f == "sss_pack":
+            # no tree, no subsurface rows in these tables: one-row dummies
+            assert t.shape[0] == 1 and f not in fields, f
         elif f not in TWO_LEVEL_FIELDS:  # rebuilt in this package's layout
             _assert_same_bits(f, fields[f], t.numpy())
     assert st_t.n_spheres == 7 and st_t.max_leaf == st_j.max_leaf
@@ -109,18 +118,23 @@ def test_cuda_device_without_card_raises(tmp_path):
 # each feature the port still refuses: (scene lines, the step that raises,
 # the words that begin its item in ROADMAP.md's queue 1)
 _UNPORTED = {
-    "disney": ('Material "disney"', "flatten", "Materials:"),
-    "mix": ('Material "mix"', "flatten", "Materials:"),
-    "hair": ('Material "hair"', "flatten", "Materials:"),
-    "fourier": ('Material "fourier"', "flatten", "Materials:"),
-    "subsurface": ('Material "subsurface"', "flatten", "Materials:"),
     "medium": ('MakeNamedMedium "fog" "string type" "homogeneous"',
                "flatten", "Media and volpath"),
     "realistic": ("", "flatten", "Cameras and motion"),
     "motion": ("ActiveTransform EndTime\nTranslate 0 0 1\nActiveTransform All",
                "upload", "Cameras and motion"),
     "integrator": ("", "renderer", "Other integrators"),
-    "sampler": ("", "renderer", "Samplers"),
+}
+
+# features the port refused until they were ported: (scene lines, header
+# line); each now flattens, uploads and renders
+_PORTED = {
+    "disney": ('Material "disney"', ""),
+    "mix": ('Material "mix"', ""),
+    "hair": ('Material "hair"', ""),
+    "fourier": ('Material "fourier"', ""),
+    "subsurface": ('Material "subsurface"', ""),
+    "sampler": ("", 'Sampler "sobol"'),
 }
 
 
@@ -185,3 +199,36 @@ def test_failed_native_build_raises(monkeypatch, tmp_path):
     _, sc = _both("random_triangles", tmp_path)
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         upload(sc, device="cpu")
+
+
+@pytest.mark.parametrize("feature", list(_PORTED))
+def test_formerly_unported_features_render(feature):
+    """The scene lines of each feature the port refused before it was
+    ported (the Disney, mix, hair, Fourier and subsurface materials and the
+    sobol sampler) flatten, upload and render on the CPU, with finite
+    pixels, under a distant light."""
+    from tpupt_torch.integrators.path import Renderer
+
+    lines, head = _PORTED[feature]
+    txt = f"""
+Camera "perspective" "float fov" [45]
+Film "image" "integer xresolution" [8] "integer yresolution" [8]
+{head}
+WorldBegin
+LightSource "distant" "point from" [0 0 -5] "point to" [0 0 0] "rgb L" [2 2 2]
+{lines}
+Shape "trianglemesh" "point P" [-1 -1 3  1 -1 3  0 1 3] "integer indices" [0 1 2]
+WorldEnd
+"""
+    with warnings.catch_warnings():
+        # the bare mix names no children, the bare fourier no file
+        warnings.simplefilter("ignore")
+        sc = flatten(parse_string(txt))
+    ds, st = upload(sc, device="cpu")
+    r = Renderer(sc, device="cpu", tables=(ds, st))
+    img = r.image(r.render(spp=1))
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+    if feature == "sampler":
+        assert r.sampler.name == "sobol" and img.mean() > 0
+    else:
+        assert st.mat_features

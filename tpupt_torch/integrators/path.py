@@ -8,7 +8,9 @@ dimensions static exactly like the reference's deterministic dimension
 consumption.
 
 Per vertex: intersect -> (MIS-weighted) emitted light -> NEE light sample +
-shadow ray -> BSDF sample -> throughput update -> RR. Per-ray traversal
+shadow ray -> BSDF sample -> (in a scene with subsurface materials: the
+BSSRDF exit probe, NEE and its shadow ray at the exit) -> throughput update
+-> RR. Per-ray traversal
 counters accumulate into film AOVs (GeneralStats parity).
 
 Every traversal goes through the wrapper `pick_traversal` returns:
@@ -38,15 +40,18 @@ import torch
 from tpupt_torch.accel import kdbsp
 from tpupt_torch.accel import traverse as trav
 from tpupt_torch.cameras.perspective import generate_rays
-from tpupt_torch.core.sampling import power_heuristic
+from tpupt_torch.core import rng
+from tpupt_torch.core.rng import M32, as_u32
+from tpupt_torch.core.sampling import cosine_sample_hemisphere, power_heuristic
 from tpupt_torch.core.spectrum import luminance
-from tpupt_torch.core.vecmath import (absdot, cross, dot, normalize,
-                                      offset_ray_origin, safe_sqrt)
+from tpupt_torch.core.vecmath import (absdot, coordinate_system, cross, dot,
+                                      normalize, offset_ray_origin, safe_sqrt)
 from tpupt_torch.film import film as filmmod
 from tpupt_torch.integrators.replay import HitRecorder
 from tpupt_torch.lights.lights import (emitted_radiance, env_pdf,
                                        env_radiance, pdf_li, sample_li)
 from tpupt_torch.materials import bsdf as bx
+from tpupt_torch.materials.bssrdf import sss_exit, sw_lobe
 from tpupt_torch.ops import traverse_kdbsp, traverse_treelets, traverse_wide
 from tpupt_torch.samplers.samplers import WavefrontSampler
 from tpupt_torch.scene.device import (DeviceScene, SceneStatics, upload,
@@ -278,6 +283,7 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
     n = o.shape[0]
     dev = o.device
     i32 = torch.int32
+    feats = st.mat_features
 
     inf_pmf = 1.0 / max(st.n_lights, 1)
     tmax_init = o.new_full((n,), math.inf)
@@ -385,7 +391,9 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
         mp = bx.gather_mat_params(ds, sp.mat, uv=sp.uv, p=sp.p, face=sp.face,
                                   has_textures=st.has_textures,
                                   tex_width=tex_width, tex_aniso=tex_aniso,
-                                  tex_types=st.tex_types)
+                                  tex_types=st.tex_types,
+                                  has_mix="mix" in feats,
+                                  fourier_meta=st.fourier)
         t_f, b_f, n_f = bx.make_frame(sp.ns)
         wo_l = bx.to_local(t_f, b_f, n_f, wo)
 
@@ -394,7 +402,7 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
             lid, pmf = pick_light(ub[0], sp.p)
             ls = sample_li(ds, st, lid, sp.p, ub[1], ub[2])
             wi_l = bx.to_local(t_f, b_f, n_f, ls.wi)
-            f_l, pdf_b = bx.eval_pdf(mp, wo_l, wi_l)
+            f_l, pdf_b = bx.eval_pdf(mp, wo_l, wi_l, feats, st.mix_features)
             f_l = f_l * absdot(ls.wi, sp.ns)[..., None]
             can = alive & (ls.pdf > 0.0) & (torch.amax(f_l, -1) > 0.0)
             # shadow ray (VisibilityTester::Unoccluded, light.h:99)
@@ -416,23 +424,87 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
             L = L + torch.where((can & ~occluded)[..., None], contrib, 0.0)
 
         # ---- BSDF sampling (path.cpp:144-160) ----
-        bs = bx.sample(mp, wo_l, ub[3], ub[4], ub[5])
+        bs = bx.sample(mp, wo_l, ub[3], ub[4], ub[5], feats, st.mix_features)
         wi_w = bx.to_world(t_f, b_f, n_f, bs.wi)
         cos_w = absdot(wi_w, sp.ns)
         ok = bs.pdf > 1e-9
         thru = bs.f * (cos_w / bs.pdf.clamp_min(1e-9))[..., None]
+        spawn_p, spawn_ng = sp.p, sp.ng
+        bs_specular, bs_pdf = bs.specular, bs.pdf
+
+        if "sss" in feats:
+            # BSSRDF: lanes that transmitted through a subsurface interface
+            # resume the path at a sampled exit point with its own NEE and
+            # the Sw exit lobe (path.cpp:167-189; bssrdf.cpp Sample_S):
+            # two more traversals, the probe and the exit's shadow ray
+            is_sss = ((mp.type == bx.MAT_SUBSURFACE)
+                      | (mp.type == bx.MAT_KDSUBSURFACE))
+            entered = (alive & ok & is_sss
+                       & (bs.wi[..., 2] * wo_l[..., 2] < 0.0))
+            key_sss = rng.hash_combine(
+                rng.hash_combine((as_u32(px) * 7919 + as_u32(py)) & M32,
+                                 sample_idx),
+                1000 + bounce)
+            pe, ne, w_prof, c_norm, ok_sss = sss_exit(
+                ds, st, mp, sp, entered, key_sss,
+                lambda o_, d_, t_: intersect(o_, d_, t_)[0],
+                lambda h_, o_, d_: shading_point(ds, st, h_, o_, d_, tables))
+            eta1 = mp.eta[..., 0]
+            beta_exit = beta * thru * w_prof   # throughput AT the exit
+            te, be_ = coordinate_system(ne)
+
+            # NEE at the exit vertex (UniformSampleOneLight)
+            if st.n_lights > 0:
+                lid_e, pmf_e = pick_light(rng.uniform_float(key_sss, 110), pe)
+                ls_e = sample_li(ds, st, lid_e, pe,
+                                 rng.uniform_float(key_sss, 111),
+                                 rng.uniform_float(key_sss, 112))
+                cos_e = dot(ls_e.wi, ne)
+                f_sw = sw_lobe(eta1, c_norm, cos_e)
+                can_e = (entered & ok_sss & (ls_e.pdf > 0.0)
+                         & (cos_e > 1e-6))
+                o_she = offset_ray_origin(pe, ne, ls_e.wi)
+                occ_e = intersect(o_she, ls_e.wi,
+                                  torch.where(can_e, ls_e.dist * 0.997, 0.0),
+                                  any_hit=True)[0].valid
+                w_mis = torch.where(ls_e.is_delta, 1.0, power_heuristic(
+                    1.0, ls_e.pdf * pmf_e, 1.0,
+                    cos_e.clamp_min(0.0) / math.pi))
+                contrib_e = beta_exit * (f_sw * cos_e * w_mis / (
+                    ls_e.pdf * pmf_e).clamp_min(1e-12))[..., None] * ls_e.li
+                L = L + torch.where((can_e & ~occ_e)[..., None], contrib_e,
+                                    0.0)
+
+            # Sw exit continuation: cosine hemisphere at ne
+            wi_le = cosine_sample_hemisphere(rng.uniform_float(key_sss, 104),
+                                             rng.uniform_float(key_sss, 105))
+            wi_sss = bx.to_world(te, be_, ne, wi_le)
+            pdf_sss = (wi_le[..., 2] / math.pi).clamp_min(1e-9)
+            f_cont = sw_lobe(eta1, c_norm, wi_le[..., 2])
+            # thru at the exit = w_prof * Sw * cos / pdf
+            thru_sss = w_prof * (f_cont * wi_le[..., 2] / pdf_sss)[..., None]
+            wi_w = torch.where(entered[..., None], wi_sss, wi_w)
+            thru = torch.where(entered[..., None],
+                               torch.where(ok_sss[..., None],
+                                           thru * thru_sss, 0.0),
+                               thru)
+            spawn_p = torch.where(entered[..., None], pe, spawn_p)
+            spawn_ng = torch.where(entered[..., None], ne, spawn_ng)
+            bs_specular = torch.where(entered, False, bs_specular)
+            bs_pdf = torch.where(entered, pdf_sss, bs_pdf)
+            ok = ok & (~entered | ok_sss)
 
         beta = beta * torch.where((ok & alive)[..., None], thru,
                                   torch.where(alive[..., None], 0.0, 1.0))
         alive = alive & ok & (torch.amax(beta, -1) > 0.0)
         eta_scale = eta_scale * torch.where(alive, bs.eta_scale, 1.0)
-        prev_specular = torch.where(alive, bs.specular, prev_specular)
-        prev_pdf = torch.where(alive, bs.pdf.clamp_min(1e-12), prev_pdf)
-        prev_p = torch.where(alive[..., None], sp.p, prev_p)
+        prev_specular = torch.where(alive, bs_specular, prev_specular)
+        prev_pdf = torch.where(alive, bs_pdf.clamp_min(1e-12), prev_pdf)
+        prev_p = torch.where(alive[..., None], spawn_p, prev_p)
 
         # ---- spawn next ray ----
         o = torch.where(alive[..., None],
-                        offset_ray_origin(sp.p, sp.ng, wi_w), o)
+                        offset_ray_origin(spawn_p, spawn_ng, wi_w), o)
         d = torch.where(alive[..., None], wi_w, d)
 
         # ---- russian roulette (path.cpp:193-199) ----

@@ -162,6 +162,18 @@ class DeviceScene(NamedTuple):
     med_w2m: torch.Tensor
     prim_med_in: torch.Tensor     # (P,) i32 global prim order, -1 vacuum
     prim_med_out: torch.Tensor
+    # the shared Fourier BSDF table (materials/fourier.py; one-row dummies
+    # when the scene has none); its sizes are SceneStatics.fourier
+    four_mu: torch.Tensor         # (n_mu,) knots
+    four_a: torch.Tensor          # (n_coeffs,) coefficient runs
+    four_m: torch.Tensor          # (n_mu*n_mu,) i32 run lengths
+    four_aoff: torch.Tensor       # (n_mu*n_mu,) i32 run offsets
+    four_cdf: torch.Tensor        # (n_mu*n_mu,) marginal cdf (sampling)
+    # tabulated beam-diffusion BSSRDF (bssrdf.cpp:145): per-material row
+    # [sigma_t(3) | rho_eff(3) | profile 3x64 | inverse-cdf 3x64] over the
+    # shared unitless radius grid (materials/bssrdf_table.py); a one-row
+    # dummy when SceneStatics.has_bssrdf_table is False
+    sss_pack: torch.Tensor        # (M, 390) f32
 
 
 class SceneStatics(NamedTuple):
@@ -175,6 +187,8 @@ class SceneStatics(NamedTuple):
     env_h: int = 0
     env_light_id: int = -1
     has_textures: bool = False
+    # the material families of the scene among "disney", "hair", "mix",
+    # "sss" and "fourier": only those are computed (materials/bsdf.py)
     mat_features: frozenset = frozenset()
     spatial_lights: bool = False  # light_grid_cdf is a real G^3 grid
     has_light_imgs: bool = False
@@ -197,14 +211,23 @@ class SceneStatics(NamedTuple):
     # (Kd, Ks) texture types the materials refer to (textures.
     # present_types): the only ones eval_texture computes
     tex_types: tuple = (frozenset(), frozenset())
+    # the Fourier table's static sizes (m_max, n_mu, n_channels, eta), or
+    # None without one
+    fourier: object = None
+    # tabulated beam-diffusion BSSRDF rows present (sss_pack)
+    has_bssrdf_table: bool = False
+    # the families of the rows that mix rows name as children
+    # (mix_child_features): the only ones computed for the children (a
+    # port-only static; from_numpy derives it from the carried tables)
+    mix_features: frozenset = frozenset()
 
 
 # statics that must be off in tables handed over from the JAX package: each
 # names a feature this package does not render yet, (off value, ROADMAP.md
 # queue 1 item)
 _UNPORTED_STATICS = dict(
-    mat_features=(frozenset(), 8), n_media=(0, 11), has_motion=(False, 9),
-    cam_animated=(False, 9), n_channels=(3, 10))
+    n_media=(0, 11), has_motion=(False, 9), cam_animated=(False, 9),
+    n_channels=(3, 10))
 
 
 def pack_prim_rows(scene: FlatScene, prim_ids: np.ndarray) -> np.ndarray:
@@ -376,10 +399,6 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
         raise NotImplementedError(
             "media are not in the PyTorch port yet (ROADMAP.md queue 1, "
             "item 11)")
-    if scene.fourier_table:
-        raise NotImplementedError(
-            "Fourier tables are not in the PyTorch port yet (ROADMAP.md "
-            "queue 1, item 8)")
     if bvh is None:
         bvh = build_scene_bvh(scene)
     wlo, whi = scene.world_bounds()
@@ -453,7 +472,12 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
         med_is_grid=np.zeros(1, bool), med_density=np.ones(1, f32),
         med_dens_off=np.zeros(1, i32), med_dens_dims=np.ones((1, 3), i32),
         med_w2m=eye.copy(), prim_med_in=med_in, prim_med_out=med_out,
+        **fourier_fields(scene.fourier_table),
     )
+    sss_pack = sss_pack_rows(m)
+    fields["sss_pack"] = (sss_pack if sss_pack is not None
+                          else np.zeros((1, 390), f32))
+    ft = scene.fourier_table
     # wide-leaf prim counts (leaf-merged fat leaves; collapse_to_wide)
     metas = wide_nodes[:, 48:56].view(np.int32)
     leaf_metas = metas[(metas < 0) & (metas != -2**31)]
@@ -470,6 +494,12 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
         has_textures=bool((m.kd_tex >= 0).any() or (m.ks_tex >= 0).any()),
         has_light_imgs=bool((lt.img_off >= 0).any()),
         tex_types=present_types(fields["tex_type"], m.kd_tex, m.ks_tex),
+        mat_features=material_features(m.type),
+        mix_features=mix_child_features(m.type, m.extra),
+        fourier=(dict(m_max=ft["m_max"], n_mu=ft["n_mu"],
+                      n_channels=ft["n_channels"], eta=ft["eta"])
+                 if ft else None),
+        has_bssrdf_table=sss_pack is not None,
         spatial_lights=light_grid_cdf.shape[0] > 1,
         camera_medium=scene.camera_medium,
         shutter_open=float(cam.shutter_open),
@@ -478,6 +508,87 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
         n_treelets=tla.n_treelets if tla else 0,
         tl_tn=tla.tn if tla else 0, tl_tp=tla.tp if tla else 0)
     return fields, statics
+
+
+def material_features(mat_type) -> frozenset:
+    """The material families present among the rows' types (the static
+    SceneStatics.mat_features), as the JAX package names them."""
+    from tpupt_torch.scene.flatten import (MAT_DISNEY, MAT_FOURIER,
+                                           MAT_HAIR, MAT_KDSUBSURFACE,
+                                           MAT_MIX, MAT_SUBSURFACE)
+
+    mat_type = np.asarray(mat_type)
+    return frozenset(
+        name for name, tid in (("disney", MAT_DISNEY), ("hair", MAT_HAIR),
+                               ("mix", MAT_MIX), ("sss", MAT_SUBSURFACE),
+                               ("sss", MAT_KDSUBSURFACE),
+                               ("fourier", MAT_FOURIER))
+        if (mat_type == tid).any())
+
+
+def mix_child_features(mat_type, mat_extra) -> frozenset:
+    """The material families of the rows that the mix rows name as their
+    two children (extra[1:3])."""
+    from tpupt_torch.scene.flatten import MAT_MIX
+
+    mat_type = np.asarray(mat_type)
+    mix = mat_type == MAT_MIX
+    if not mix.any():
+        return frozenset()
+    children = np.asarray(mat_extra)[mix][:, 1:3].astype(np.int64).ravel()
+    return material_features(mat_type[children]) - {"mix"}
+
+
+def fourier_fields(ft) -> dict:
+    """The four_* fields from a FlatScene's Fourier table (one-row dummies
+    without one)."""
+    if not ft:
+        return dict(four_mu=np.zeros(1, np.float32),
+                    four_a=np.zeros(1, np.float32),
+                    four_m=np.zeros(1, np.int32),
+                    four_aoff=np.zeros(1, np.int32),
+                    four_cdf=np.zeros(1, np.float32))
+    return dict(four_mu=ft["mu"], four_a=ft["a"], four_m=ft["m"],
+                four_aoff=ft["aoffset"],
+                four_cdf=ft.get("cdf", np.zeros(1, np.float32)))
+
+
+def sss_pack_rows(m):
+    """Per-material tabulated-BSSRDF rows, or None when the scene has no
+    subsurface materials. Row layout (390 f32): sigma_t (3) | rho_eff (3) |
+    per-channel profile P_c over the shared 64-point optical radius grid
+    (3x64) | per-channel inverse radial cdf r_opt(u) at 64 uniform u nodes
+    (3x64). P_c = 2 pi r_opt Sr_1(r_opt) at sigma_t = 1
+    (ComputeBeamDiffusionBSSRDF; materials/bssrdf_table.py)."""
+    from tpupt_torch.materials.bssrdf_table import \
+        compute_beam_diffusion_table
+    from tpupt_torch.scene.flatten import MAT_KDSUBSURFACE, MAT_SUBSURFACE
+
+    is_sss = (m.type == MAT_SUBSURFACE) | (m.type == MAT_KDSUBSURFACE)
+    if not is_sss.any():
+        return None
+    pack = np.zeros((len(m.type), 390), np.float32)
+    u_nodes = np.linspace(0.0, 1.0, 64)
+    for mi in np.nonzero(is_sss)[0]:
+        tab = compute_beam_diffusion_table(float(m.eta[mi, 0]))
+        sig_t = np.maximum(m.extra[mi, 3:6], 1e-6)
+        alpha = np.clip(m.extra[mi, 6:9], 0.0, float(tab.rho[-1]))
+        pack[mi, 0:3] = sig_t
+        pack[mi, 3:6] = np.interp(alpha, tab.rho, tab.rho_eff)
+        for c in range(3):
+            # interpolate the profile / cdf rows to this channel's albedo
+            k = np.clip(np.searchsorted(tab.rho, alpha[c]), 1,
+                        len(tab.rho) - 1)
+            w = ((alpha[c] - tab.rho[k - 1])
+                 / max(tab.rho[k] - tab.rho[k - 1], 1e-12))
+            prof = (1 - w) * tab.profile[k - 1] + w * tab.profile[k]
+            cdf = np.maximum.accumulate(
+                (1 - w) * tab.cdf[k - 1] + w * tab.cdf[k])
+            pack[mi, 6 + 64 * c: 6 + 64 * (c + 1)] = prof
+            # piecewise-linear inverse cdf at uniform u nodes
+            pack[mi, 198 + 64 * c: 198 + 64 * (c + 1)] = np.interp(
+                u_nodes, cdf, tab.radius)
+    return pack
 
 
 def texture_fields(textures, m) -> dict:
@@ -594,9 +705,14 @@ def from_numpy(ds_fields: dict, st_fields: dict, device="cuda"):
                 f"{item})")
     statics = SceneStatics(**{k: st_fields[k] for k in SceneStatics._fields
                               if k in st_fields})
-    statics = statics._replace(tex_types=present_types(
-        ds_fields["tex_type"], ds_fields["mat_kd_tex"],
-        ds_fields["mat_ks_tex"]))
+    statics = statics._replace(
+        tex_types=present_types(ds_fields["tex_type"],
+                                ds_fields["mat_kd_tex"],
+                                ds_fields["mat_ks_tex"]),
+        mix_features=mix_child_features(ds_fields["mat_type"],
+                                        ds_fields["mat_extra"]))
+    if ds_fields.get("sss_pack") is None:
+        ds_fields = {**ds_fields, "sss_pack": np.zeros((1, 390), np.float32)}
     tla = None
     if statics.two_level:
         tla = build_treelets(np.asarray(ds_fields["wide_nodes"]),

@@ -1,9 +1,8 @@
 """SceneDescription -> FlatScene: flat SoA tensors for the device.
 
-Features this package does not render yet (Disney/hair/Fourier/mix
-materials, subsurface, the realistic camera, media; motion blur raises at
-upload) raise NotImplementedError here, naming the ROADMAP.md item that will
-bring them; nothing is silently dropped.
+Features this package does not render yet (the realistic camera, media;
+motion blur raises at upload) raise NotImplementedError here, naming the
+ROADMAP.md item that will bring them; nothing is silently dropped.
 
 This is the flat-table replacement for the reference's pointer-graph scene
 (GeometricPrimitive / TransformedPrimitive, core/primitive.h): instancing is
@@ -40,6 +39,15 @@ def _later(what: str, item: str):
     return NotImplementedError(
         f"{what} is not in the PyTorch port yet (ROADMAP.md queue 1, "
         f"item {item})")
+
+
+def _burley_d(rho, mfp):
+    """Diffusion radius d from albedo + mean free path (Christensen-Burley
+    2015 eq. 8: s = 1.85 - rho + 7|rho - 0.8|^3; pbrt's BSSRDF table plays
+    this role for the reference, core/bssrdf.cpp ComputeBeamDiffusionBSSRDF)."""
+    rho = np.clip(np.asarray(rho, np.float64), 1e-4, 1.0)
+    s = 1.85 - rho + 7.0 * np.abs(rho - 0.8) ** 3
+    return np.maximum(np.asarray(mfp, np.float64), 1e-6) / s
 
 
 _MATERIAL_IDS = {
@@ -370,9 +378,10 @@ class _MaterialTable:
     per-hit evaluation (textures/textures.py); constant ones are folded
     into the row."""
 
-    def __init__(self, textures: Dict, tex_table=None):
+    def __init__(self, textures: Dict, tex_table=None, named_materials=None):
         self.textures = textures
         self.tex_table = tex_table
+        self.named_materials = named_materials
         self.rows: List[dict] = []
         self.cache: Dict = {}
 
@@ -391,7 +400,7 @@ class _MaterialTable:
         if key in self.cache:
             return self.cache[key]
         mid = len(self.rows)
-        self.rows.append(None)
+        self.rows.append(None)  # reserve the slot: mix recurses into add()
         self.cache[key] = mid
         self.rows[mid] = self._make_row(spec)
         return mid
@@ -403,9 +412,6 @@ class _MaterialTable:
             warnings.warn(f"material {spec.type!r} not yet supported; using matte")
             t = MAT_MATTE
         ctx = f"material {spec.type!r}"
-        if t in (MAT_DISNEY, MAT_HAIR, MAT_MIX, MAT_SUBSURFACE,
-                 MAT_KDSUBSURFACE, MAT_FOURIER):
-            raise _later(f"material {spec.type!r}", "8")
         row = dict(
             type=t,
             kd=np.asarray([0.5, 0.5, 0.5], np.float64),
@@ -463,8 +469,129 @@ class _MaterialTable:
             row["kr"] = _resolve_spectrum(p, "reflect", [0.5] * 3, self.textures, ctx)
             row["kt"] = _resolve_spectrum(p, "transmit", [0.5] * 3, self.textures, ctx)
             row["roughness"] = _resolve_float(p, "roughness", 0.1, self.textures, ctx)
+        elif t == MAT_DISNEY:
+            self._disney_row(p, row, ctx)
+        elif t == MAT_HAIR:
+            self._hair_row(p, row, ctx)
+        elif t in (MAT_SUBSURFACE, MAT_KDSUBSURFACE):
+            self._subsurface_row(p, row, t, ctx)
+        elif t == MAT_FOURIER:
+            # materials/fourier.cpp: tabulated BSDF from a .bsdf file; the
+            # table itself is attached scene-wide at flatten() (one table a
+            # scene)
+            row["fourier_file"] = p.find_one_string("bsdffile", "")
+        elif t == MAT_MIX:
+            self._mix_row(p, row, ctx)
         p.report_unused(ctx)
         return row
+
+    def _disney_row(self, p, row, ctx):
+        """disney.cpp CreateDisneyMaterial's parameter set, the eleven
+        scalars in extra[0:11]; the roughness is used as given."""
+        row["kd"] = _resolve_spectrum(p, "color", [0.5] * 3, self.textures, ctx)
+        row["roughness"] = _resolve_float(p, "roughness", 0.5, self.textures, ctx)
+        row["eta"] = np.full(3, _resolve_float(p, "eta", 1.5, self.textures, ctx))
+        row["remap"] = False
+        for i, (name, default) in enumerate((
+                ("metallic", 0.0), ("sheen", 0.0), ("sheentint", 0.5),
+                ("speculartint", 0.0), ("clearcoat", 0.0),
+                ("clearcoatgloss", 1.0), ("anisotropic", 0.0),
+                ("spectrans", 0.0))):
+            row["extra"][i] = _resolve_float(p, name, default, self.textures,
+                                             ctx)
+        row["extra"][8] = float(p.find_one_bool("thin", False))
+        row["extra"][9] = _resolve_float(p, "difftrans", 1.0, self.textures, ctx)
+        row["extra"][10] = _resolve_float(p, "flatness", 0.0, self.textures, ctx)
+
+    def _hair_row(self, p, row, ctx):
+        """hair.cpp CreateHairMaterial: sigma_a from sigma_a, else color,
+        else the melanin concentrations; beta_m / beta_n roughness and the
+        alpha tilt in extra[0:3]."""
+        sig = p.find_one_spectrum("sigma_a", [-1.0] * 3)
+        if sig[0] < 0:
+            col = p.find_one_spectrum("color", [-1.0] * 3)
+            if col[0] >= 0:
+                # HairBSDF::SigmaAFromReflectance (hair.cpp:61)
+                bn = _resolve_float(p, "beta_n", 0.3, self.textures, ctx)
+                c = np.asarray(col, np.float64)
+                denom = (5.969 - 0.215 * bn + 2.532 * bn**2
+                         - 10.73 * bn**3 + 5.574 * bn**4 + 0.245 * bn**5)
+                sig = (np.log(np.maximum(c, 1e-4)) / denom) ** 2
+            else:
+                eu = p.find_one_float("eumelanin", 1.3)
+                ph = p.find_one_float("pheomelanin", 0.0)
+                # SigmaAFromConcentration (hair.cpp:52)
+                sig = (eu * np.array([0.419, 0.697, 1.37])
+                       + ph * np.array([0.187, 0.4, 1.05]))
+        row["kd"] = np.asarray(sig, np.float64)
+        row["eta"] = np.full(3, _resolve_float(p, "eta", 1.55, self.textures, ctx))
+        row["extra"][0] = _resolve_float(p, "beta_m", 0.3, self.textures, ctx)
+        row["extra"][1] = _resolve_float(p, "beta_n", 0.3, self.textures, ctx)
+        row["extra"][2] = _resolve_float(p, "alpha", 2.0, self.textures, ctx)
+
+    def _subsurface_row(self, p, row, t, ctx):
+        """materials/subsurface.cpp and kdsubsurface.cpp: the diffuse
+        reflectance rho in kd, the Burley radius d in extra[0:3], sigma_t in
+        extra[3:6] and the single-scatter albedo in extra[6:9]; the surface
+        interface keeps eta and roughness."""
+        from tpupt_torch.materials.bssrdf_table import (
+            compute_beam_diffusion_table, subsurface_from_diffuse)
+
+        row["eta"] = np.full(3, _resolve_float(
+            p, "eta", 1.33 if t == MAT_SUBSURFACE else 1.3, self.textures,
+            ctx))
+        row["roughness"] = _resolve_float(p, "uroughness", 0.0,
+                                          self.textures, ctx)
+        row["remap"] = p.find_one_bool("remaproughness", True)
+        scale = p.find_one_float("scale", 1.0)
+        tab = compute_beam_diffusion_table(float(row["eta"][0]))
+        if t == MAT_SUBSURFACE:
+            sig_a = np.asarray(_resolve_spectrum(
+                p, "sigma_a", [0.0011, 0.0024, 0.014], self.textures,
+                ctx)) * scale
+            sig_s = np.asarray(_resolve_spectrum(
+                p, "sigma_prime_s", [2.55, 3.21, 3.77], self.textures,
+                ctx)) * scale
+            sig_t = np.maximum(sig_a + sig_s, 1e-6)
+            mfp = 1.0 / sig_t
+        else:
+            # kdsubsurface.cpp: invert the tabulated rho -> rho_eff curve
+            # (SubsurfaceFromDiffuse, bssrdf.cpp:700)
+            kd_t = np.clip(np.asarray(_resolve_spectrum(
+                p, "Kd", [0.5] * 3, self.textures, ctx)), 0.0, 0.995)
+            mfp = np.full(3, p.find_one_float("mfp", 1.0))
+            sig_a, sig_s = subsurface_from_diffuse(tab, kd_t, mfp)
+            sig_t = np.maximum(sig_a + sig_s, 1e-6)
+        alpha = sig_s / sig_t
+        # diffuse reflectance = the table's effective albedo at the
+        # single-scatter albedo (ComputeBeamDiffusionBSSRDF rhoEff)
+        rho = np.clip(np.interp(alpha, tab.rho, tab.rho_eff), 0.0, 0.995)
+        row["kd"] = rho
+        row["extra"][0:3] = _burley_d(rho, mfp)  # Burley fallback
+        row["extra"][3:6] = sig_t                # tabulated profile
+        row["extra"][6:9] = np.clip(alpha, 0.0, float(tab.rho[-1]))
+
+    def _mix_row(self, p, row, ctx):
+        """mixmat.cpp: two named materials, scaled by amount / (1 - amount):
+        the amount in kd, its luminance in extra[0], the two child rows in
+        extra[1:3] (an unknown name becomes a matte row, with a warning)."""
+        amt = np.asarray(_resolve_spectrum(p, "amount", [0.5] * 3,
+                                           self.textures, ctx))
+        children = []
+        for key in ("namedmaterial1", "namedmaterial2"):
+            name = p.find_one_string(key, "")
+            cid = 0
+            if self.named_materials is not None:
+                spec = self.named_materials.get(name)
+                if spec is None:
+                    warnings.warn(f"mix material: unknown {name!r}; using matte")
+                    spec = MaterialSpec("matte", ParamSet())
+                cid = self.add(spec)
+            children.append(cid)
+        lum = float(0.2126 * amt[0] + 0.7152 * amt[1] + 0.0722 * amt[2])
+        row["kd"] = amt
+        row["extra"][0] = min(max(lum, 0.0), 1.0)
+        row["extra"][1:3] = children
 
     def finalize(self) -> Materials:
         if not self.rows:
@@ -686,7 +813,7 @@ def flatten(desc: SceneDescription, scene_dir: str = ".") -> FlatScene:
     if desc.media:
         raise _later("participating media", "11")
     tex_table = TextureTable.build(desc.textures, scene_dir)
-    mats = _MaterialTable(desc.textures, tex_table)
+    mats = _MaterialTable(desc.textures, tex_table, desc.named_materials)
     tri_chunks: List[dict] = []
     sph_rows: List[dict] = []
     light_rows: List[dict] = []
@@ -959,7 +1086,33 @@ def flatten(desc: SceneDescription, scene_dir: str = ".") -> FlatScene:
                      textures=tex_table.arrays(),
                      media=dict(desc.media), env_map=env_state["map"],
                      env_light_id=env_state["id"], env_w2l=env_state["w2l"],
+                     fourier_table=_fourier_table(mats.rows, scene_dir),
                      media_order=media_order, camera_medium=camera_medium)
+
+
+def _fourier_table(rows, scene_dir: str):
+    """The shared Fourier BSDF table: the first readable .bsdf file that a
+    fourier material names (one table a scene; a second file is ignored
+    with a warning, a missing one warned about), or None."""
+    from tpupt_torch.materials.fourier import read_bsdf_file
+
+    table = None
+    for row in rows:
+        fn = (row or {}).get("fourier_file")
+        if not fn:
+            continue
+        path = fn if os.path.isabs(fn) else os.path.join(scene_dir, fn)
+        if not os.path.isfile(path):
+            warnings.warn(f"fourier bsdffile {fn!r} not found")
+            continue
+        t = read_bsdf_file(path)
+        if t is None:
+            continue
+        if table is not None:
+            warnings.warn("multiple .bsdf files; using the first")
+        else:
+            table = t
+    return table
 
 
 def with_resolution(scene: FlatScene, xres: int, yres: int) -> FlatScene:

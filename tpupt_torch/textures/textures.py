@@ -348,10 +348,18 @@ def fbm(p, omega, octaves: int):
     return s
 
 
+def abs_tie_up(x):
+    """|x| whose derivative at x = 0 is +1, as jnp.abs's is (torch.abs's
+    is 0 there). Noise is exactly 0 on the lattice lines of its cells (a
+    hit with two coordinates 0 meets them in every octave), so the tie
+    rule decides the gradient of turbulence there."""
+    return torch.where(x >= 0, x, -x)
+
+
 def turbulence(p, omega, octaves: int):
     s, o = 0.0, 1.0
     for n in _octaves(p, octaves):
-        s = s + o * torch.abs(n)
+        s = s + o * abs_tie_up(n)
         o *= omega
     return s
 
@@ -551,7 +559,7 @@ def eval_texture(tx, tex_id, uv, p_world, width=None, aniso=None,
         if TEX_WINDY in types:
             # textures/windy.h: FBm(0.1 p) * |FBm(p)|
             wind = fbm(p_world * 0.1, 0.5, 3)
-            vals[TEX_WINDY] = (wind * torch.abs(fbm6))[:, None].expand(-1, 3)
+            vals[TEX_WINDY] = (wind * abs_tie_up(fbm6))[:, None].expand(-1, 3)
     if TEX_WRINKLED in types:
         vals[TEX_WRINKLED] = turbulence(
             p_world, 0.5, octaves)[:, None].expand(-1, 3)

@@ -1,0 +1,103 @@
+"""Count the PyTorch operations one sample of a render dispatches, on the
+CPU: a device-free stand-in for the kernel launches of a sample on the card,
+where each non-view operation is one launch. The traversal calls are
+counted apart (one hand-written kernel each on the card, the plain walker's
+many operations here), and their operations are left out of the totals.
+
+    python -m tpupt_torch.tools.opcount scene.pbrt [--resolution WxH]
+        [--depth D]
+
+Prints one JSON line: the scene's material families, the traversal calls
+of one sample, the other operations of that sample in all and without the
+view operations, and the ten most frequent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import dataclasses
+import json
+import os
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from tpupt_torch.integrators.path import Renderer
+from tpupt_torch.scene.flatten import flatten, with_resolution
+from tpupt_torch.scene.loader import parse_file
+
+# operations that only make a view (no launch on the card)
+_VIEWS = {"view", "_unsafe_view", "expand", "slice", "select", "unsqueeze",
+          "squeeze", "t", "permute", "alias", "as_strided", "detach",
+          "transpose", "unbind", "split", "split_with_sizes", "lift_fresh",
+          "view_as_real", "_reshape_alias"}
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts every ATen operation dispatched inside the `with` block."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = collections.Counter()
+        self.paused = False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not self.paused:
+            self.counts[func.__name__.split(".")[0]] += 1
+        return func(*args, **(kwargs or {}))
+
+    def totals(self) -> dict:
+        non_view = sum(c for k, c in self.counts.items() if k not in _VIEWS)
+        return {"ops": sum(self.counts.values()), "non_view_ops": non_view,
+                "most_frequent": self.counts.most_common(10)}
+
+
+def count_sample(renderer: Renderer, sample_idx: int = 0) -> dict:
+    """The operations of one sample of `renderer` outside its traversal
+    calls, and the number of those calls (after a warm-up sample, so that
+    one-time table uploads are left out)."""
+    renderer.render(spp=1)
+    counter = OpCounter()
+    calls = []
+    isect = renderer._isect
+
+    def paused(*args, **kw):
+        counter.paused = True
+        try:
+            return isect(*args, **kw)
+        finally:
+            counter.paused = False
+            calls.append(kw.get("any_hit", False))
+
+    renderer._isect = paused
+    try:
+        with torch.no_grad(), counter:
+            renderer._spp(renderer.new_film(), sample_idx)
+    finally:
+        renderer._isect = isect
+    return {"traversal_calls": len(calls), **counter.totals()}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("scene")
+    ap.add_argument("--resolution", default="32x32")
+    ap.add_argument("--depth", type=int, default=None)
+    a = ap.parse_args(argv)
+    w, h = (int(x) for x in a.resolution.lower().split("x"))
+    sc = with_resolution(flatten(parse_file(a.scene),
+                                 os.path.dirname(a.scene)), w, h)
+    if a.depth is not None:
+        sc = dataclasses.replace(sc, integrator=dataclasses.replace(
+            sc.integrator, max_depth=a.depth))
+    r = Renderer(sc, device="cpu")
+    print(json.dumps({"scene": a.scene, "resolution": [w, h],
+                      "batches": r.n_batches,
+                      "mat_features": sorted(r.st.mat_features),
+                      "sampler": sc.sampler.name, **count_sample(r)}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

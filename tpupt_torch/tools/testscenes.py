@@ -278,3 +278,141 @@ def textured_museum(out_dir: str, tex_res: int = 2048, env_res=(2048, 1024),
     with open(dst, "w") as f:
         f.write(text)
     return dst
+
+
+def fourier_test_table(n_mu: int = 12, m_max: int = 5, seed: int = 9,
+                       eta: float = 1.5) -> dict:
+    """A synthetic three-channel Fourier BSDF table (the dict that
+    materials/fourier.py reads and writes), made with numpy from `seed`: a
+    glossy reflection lobe whose series order per (muI, muO) knot pair
+    varies from 1 to `m_max` (a_k = a_0 r^k cos-series, r in [0.3, 0.7]),
+    with a per-channel tint; knots uniform in [-1, 1]; the marginal cdf
+    rows the trapezoid integral of 2 pi a_0 (luminance) over muI, as the
+    file format stores them (fourier.cpp:188)."""
+    rng = np.random.default_rng(seed)
+    mu = np.linspace(-1.0, 1.0, n_mu).astype(np.float32)
+    tint = rng.uniform(0.4, 0.9, 3)
+    m = np.zeros(n_mu * n_mu, np.int32)
+    aoffset = np.zeros(n_mu * n_mu, np.int32)
+    coeffs = []
+    a0_of = np.zeros((n_mu, n_mu))        # [muO index, muI index]
+    for oj in range(n_mu):
+        for oi in range(n_mu):
+            if mu[oi] * mu[oj] >= 0:      # reflection only: -wi and wo apart
+                continue
+            idx = oj * n_mu + oi
+            k_n = int(rng.integers(1, m_max + 1))
+            r = rng.uniform(0.3, 0.7)
+            a0 = 0.5 / np.pi * abs(mu[oi]) * (0.6 + 0.4 * abs(mu[oj]))
+            series = a0 * r ** np.arange(k_n)
+            rgb = series[None, :] * tint[:, None]
+            y = 0.2126 * rgb[0] + 0.7152 * rgb[1] + 0.0722 * rgb[2]
+            aoffset[idx] = len(coeffs)
+            m[idx] = k_n
+            # channel order Y, R, B (fourier.cpp: luminance first)
+            coeffs.extend(np.concatenate([y, rgb[0], rgb[2]]))
+            a0_of[oj, oi] = y[0]
+    cdf = np.zeros((n_mu, n_mu), np.float32)
+    for oj in range(n_mu):
+        for oi in range(1, n_mu):
+            cdf[oj, oi] = cdf[oj, oi - 1] + 2.0 * np.pi * 0.5 * (
+                a0_of[oj, oi] + a0_of[oj, oi - 1]) * (mu[oi] - mu[oi - 1])
+    return dict(mu=mu, a=np.asarray(coeffs, np.float32), cdf=cdf.reshape(-1),
+                aoffset=aoffset, m=m, m_max=int(m.max()), n_mu=n_mu,
+                n_channels=3, eta=float(eta))
+
+
+# the statues' materials of `materials_museum`, statue i taking entry
+# i % len(...); the mix's children are named materials
+MATERIALS_MUSEUM_MATERIALS = (
+    'Material "disney" "rgb color" [0.8 0.55 0.3] "float metallic" [0.8] '
+    '"float roughness" [0.3] "float clearcoat" [0.7] '
+    '"float clearcoatgloss" [0.8] "float sheen" [0.5] "float anisotropic" [0.4]',
+    'Material "disney" "rgb color" [0.75 0.85 0.9] "float spectrans" [0.8] '
+    '"float roughness" [0.2] "float eta" [1.45]',
+    'Material "disney" "rgb color" [0.4 0.7 0.35] "bool thin" "true" '
+    '"float difftrans" [0.6] "float flatness" [0.5] "float roughness" [0.5] '
+    '"float spectrans" [0.3]',
+    'Material "mix" "string namedmaterial1" "statue_plastic" '
+    '"string namedmaterial2" "statue_metal" "rgb amount" [0.2 0.5 0.8]',
+    'Material "fourier" "string bsdffile" ["statue.bsdf"]',
+    'Material "subsurface" "rgb sigma_a" [0.02 0.05 0.12] '
+    '"rgb sigma_prime_s" [1.8 2.2 2.6] "float scale" [2] "float eta" [1.4]',
+    'Material "kdsubsurface" "rgb Kd" [0.7 0.45 0.35] "float mfp" [0.3]',
+    'Material "plastic" "rgb Kd" [0.32 0.30 0.34] "rgb Ks" [0.35 0.35 0.35] '
+    '"float roughness" [0.08]',
+)
+
+
+def materials_museum(out_dir: str, n_hairs: int = 256, seed: int = 11,
+                     **size) -> str:
+    """tools/genscene.py's museum (`size`: grid, seg, rings; the statues the
+    same triangles) with pbrt-v3's other materials on its statues, statue i
+    taking MATERIALS_MUSEUM_MATERIALS[i % 8]: Disney (metallic with
+    clearcoat and sheen; specTrans; thin), a mix of plastic and metal with
+    a spectrum amount, a Fourier BSDF from statue.bsdf (written beside the
+    scene by materials/fourier.py's writer from `fourier_test_table`), a
+    subsurface with explicit sigma_a / sigma_prime_s, a kdsubsurface and
+    the original plastic; a tuft of `n_hairs` cubic curves in hair in
+    front of the statues; the area and distant lights; Sampler "sobol".
+    At least 7 statues (grid >= 3) put every family in the scene. Writes
+    materials_museum.pbrt (and one PLY a material) beside museum.pbrt and
+    returns its path."""
+    import os
+    import re
+
+    from tpupt_torch.materials.fourier import write_bsdf_file
+    from tpupt_torch.scene.plyio import read_ply, write_ply
+    from tpupt_torch.tools import genscene
+
+    path = genscene.museum(out_dir, **size)
+    grid = size.get("grid", 8)
+    seg, rings = size.get("seg", 96), size.get("rings", 48)
+    mesh = read_ply(os.path.join(out_dir, "museum.ply"))
+    n_statues = grid * grid
+    faces = mesh["indices"].reshape(n_statues, -1, 3)
+    if faces.shape[1] != 2 * seg * rings:
+        raise ValueError("the museum's statues changed: cannot split them")
+    write_bsdf_file(os.path.join(out_dir, "statue.bsdf"),
+                    fourier_test_table())
+    mats = MATERIALS_MUSEUM_MATERIALS
+    statue_lines = [
+        'MakeNamedMaterial "statue_plastic" "string type" "plastic" '
+        '"rgb Kd" [0.6 0.2 0.15] "rgb Ks" [0.4 0.4 0.4] "float roughness" '
+        '[0.05]',
+        'MakeNamedMaterial "statue_metal" "string type" "metal" '
+        '"float roughness" [0.15]']
+    for k, line in enumerate(mats):
+        ids = np.arange(k, n_statues, len(mats))
+        if not len(ids):
+            continue
+        name = f"statues_{k}.ply"
+        write_ply(os.path.join(out_dir, name), mesh["P"],
+                  faces[ids].reshape(-1, 3), N=mesh.get("N"))
+        statue_lines += [line,
+                         f'Shape "plymesh" "string filename" ["{name}"]']
+    # the hair tuft: curves rising from the floor in front of the statues
+    rng = np.random.default_rng(seed)
+    front = -(grid * 3.0) / 2.0 - 0.5
+    hair = ['Material "hair" "float eumelanin" [0.8] "float beta_m" [0.25] '
+            '"float beta_n" [0.3]']
+    for _ in range(n_hairs):
+        x0, y0 = rng.uniform(-1.5, 1.5), front + rng.uniform(-0.4, 0.4)
+        lean = rng.normal(0, 0.25, 2)
+        cps = [(x0, y0, 0.0),
+               (x0 + lean[0] * 0.3, y0 + lean[1] * 0.3, 0.5),
+               (x0 + lean[0] * 0.7, y0 + lean[1] * 0.7, 1.0),
+               (x0 + lean[0], y0 + lean[1], 1.4 + rng.uniform(0, 0.4))]
+        p_str = " ".join(f"{v:.4f}" for c in cps for v in c)
+        hair.append(f'Shape "curve" "point P" [{p_str}] "float width" '
+                    '[0.03] "string type" "flat"')
+    text = open(path).read()
+    text = text.replace('Sampler "halton"', 'Sampler "sobol"')
+    text, n = re.subn(r'Material "plastic"[^\n]*\nShape "plymesh"[^\n]*\n',
+                      "\n".join(statue_lines + hair) + "\n", text)
+    if n != 1 or 'Sampler "sobol"' not in text:
+        raise ValueError("the museum's scene file changed: cannot dress it")
+    dst = os.path.join(out_dir, "materials_museum.pbrt")
+    with open(dst, "w") as f:
+        f.write(text)
+    return dst
