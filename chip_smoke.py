@@ -34,7 +34,7 @@ the counters), and K4 also on the dead-heavy, all-dead, one-ray and
 131,073-ray batches, all to the bit. Then the `gradients` phase takes
 `Renderer.value_and_grad` of bench.py's loss, sum(film.rgb), with respect to
 `mat_kd`, `mat_ks`, `mat_roughness` and `light_L` on both museums at
-1024x1024 (K1, 2 samples; K3, 1 sample), with the launch counts set to 0
+1024x1024 (K1 and K3, 1 sample each), with the launch counts set to 0
 just before and read just after, each beside the same renderer's forward
 sample and against the same step through the plain version on the middle
 crop, and three `parallel.mesh.train_step_fn` steps on the small museum.
@@ -55,21 +55,41 @@ the untextured museum in the same run and against the plain version on the
 crop; takes `value_and_grad` with respect to the bench's four tables; and
 holds the five new samplers' values on the card against the CPU's, bit for
 bit, on a grid of 64x64 pixels, 16 samples and 64 dimensions.
+The `kernels` phase also holds K1's motion instance (the leaf step lerps
+each triangle to the ray's shutter time through the prim rows' vertex
+deltas) bit for bit against the plain walker at the rays' times, closest
+and any hit, with counters, on 262,144 rays of `tools/testscenes.py`
+`motion_museum` at random times (camera rays of its animated camera and the
+secondary rays from their hits), on the same scene's two-level upload (a
+motion scene goes through K1 over the rows the treelets are cut from) and
+on the dead-heavy, all-dead, one-ray and 131,073-ray batches, and times it
+alone beside the static instance on the same 131,072 secondary rays.
+The `motion` phase renders `motion_museum` (the small museum, its statues
+moving over the shutter, one of them turning, its camera animated) at
+1024x1024 through K1's motion instance beside the static museum in the
+same phase, against the plain walker on the crop, with a 1-spp
+`value_and_grad` and its linearity; renders the static museum through the
+realistic camera (`testscenes.realistic_museum`: a six-row lens of the
+package's own with an aperture stop) against the plain walker on the crop,
+with the share of camera rays vignetted; and runs `tools/sweep.py` over
+`acc=bvh,kdtree` at 256x256, 1 spp, on the card.
 There is no fallback: without a CUDA device, without the `tpupt_torch`
 package beside it, with a kernel that does not build, launch or agree, or
 with any failed check, it exits with a code other than 0 and prints no
 result line.
 
 Output: one JSON object per phase (`env`, `kernels`, `main_path`,
-`gradients`, `appearance`, `materials`), then the card's name and power
+`gradients`, `appearance`, `materials`, `motion`), then the card's name and power
 limit, the `{"kernels": [...]}` line, and last `{"ok": true, "device":
 {...}}`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
 import subprocess
@@ -84,6 +104,7 @@ import torch
 from tpupt_torch.accel import kdbsp
 from tpupt_torch.accel import traverse as trav
 from tpupt_torch.cameras.perspective import generate_rays
+from tpupt_torch.cameras.realistic import realistic_rays
 from tpupt_torch.core.sampling import cosine_sample_hemisphere
 from tpupt_torch.core.vecmath import offset_ray_origin
 from tpupt_torch.integrators.path import Renderer, shading_point
@@ -101,6 +122,7 @@ from tpupt_torch.scene.loader import parse_file, parse_string
 from tpupt_torch.scene.params import ParamSet
 from tpupt_torch.textures.textures import ALL_TYPES
 from tpupt_torch.tools import genscene, testscenes
+from tpupt_torch.tools import sweep as sweep_tool
 from tpupt_torch.utils.build import (BUILD_DIR, CSRC_DIR, NVCC_FLAGS,
                                      compile_shared, find_nvcc)
 
@@ -109,13 +131,15 @@ MAIN_RES = 1024
 MUSEUM_1M = dict(grid=8, seg=128, rings=64)      # 1,032,454 triangles
 MUSEUM_65K = dict(grid=4, seg=64, rings=32)      # 63,558 triangles
 MUSEUM_1K = dict(grid=2, seg=16, rings=8)        # 1,028 triangles
-SPP_1M = 2
-SPP_65K = 2
+# 1 sample a render of the main path and the appearance and materials
+# phases: with 2, the script took more than 750 s on a slow host
+SPP_1M = 1
+SPP_65K = 1
 # the plain walkers render this crop of the image, the kernels too for the
 # comparison: 256x256 pixels in the middle, one batch a sample
 PLAIN_CROP = (0.375, 0.625, 0.375, 0.625)
 # the gradients phase: value_and_grad of bench.py's loss, sum(film.rgb), with
-# respect to the four tables it differentiates, 2 samples on the small museum
+# respect to the four tables it differentiates, 1 sample on the small museum
 # and 1 on the 1M one; the film is linear in light_L, so
 # sum(light_L * dloss/dlight_L) equals the loss to LINEARITY_RTOL; the
 # gradients through the kernels against those through their plain versions
@@ -125,7 +149,7 @@ PLAIN_CROP = (0.375, 0.625, 0.375, 0.625)
 # mean relative difference (3e-11 and 2e-10 on the card: the film's
 # index_add sums with atomics too)
 GRAD_PARAMS = ("mat_kd", "mat_ks", "mat_roughness", "light_L")
-SPP_GRAD_65K, SPP_GRAD_1M = 2, 1
+SPP_GRAD_65K, SPP_GRAD_1M = 1, 1
 LINEARITY_RTOL = 1e-4
 GRAD_VS_PLAIN = 1e-5
 FILM_VS_RENDER_REL = 1e-6
@@ -141,7 +165,7 @@ TRAIN_STEPS, TRAIN_LR = 3, 0.5
 # tables toward the image rendered with env_map halved
 APPEAR_MAPS = dict(tex_res=2048, env_res=(2048, 1024), gonio_res=(256, 128))
 APPEAR_PARAMS = ("mat_kd", "light_L", "tex_atlas", "env_map")
-SPP_APPEAR = 2
+SPP_APPEAR = 1   # see SPP_65K
 APPEAR_TRAIN_LR = 0.05
 # the materials phase: tools/testscenes.py materials_museum at MUSEUM_65K's
 # size with MATERIALS_HAIRS hair curves, SPP_MATERIALS samples through K1,
@@ -152,11 +176,29 @@ APPEAR_TRAIN_LR = 0.05
 # card against the CPU's, bit for bit, on SAMPLER_GRID (pixels a side,
 # sample indices, dimensions)
 MATERIALS_HAIRS = 256
-SPP_MATERIALS = 2
+SPP_MATERIALS = 1   # see SPP_65K
 MATERIALS_LINEARITY_RTOL = 1e-5
 NEW_SAMPLERS = ("sobol", "02sequence", "lowdiscrepancy", "maxmindist",
                 "stratified")
 SAMPLER_GRID = (64, 16, 64)
+# the motion phase: tools/testscenes.py motion_museum at MUSEUM_65K's size,
+# SPP_MOTION samples through K1's motion instance (a vertex launches it
+# twice: 192 launches in 2 spp), one fwd+bwd sample of value_and_grad with
+# respect to GRAD_PARAMS (sum(light_L * g) within LINEARITY_RTOL of the
+# loss); realistic_museum (the small museum through the test lens, its
+# aperture stop REALISTIC_APERTURE_MM wide), SPP_REALISTIC samples through
+# K1's static instance; tools/sweep.py over SWEEP_SET at SWEEP_RES, 1 spp
+SPP_MOTION = 2
+# the motion phase compares with the plain walker on the middle 128x128
+# pixels (the plain walker lerps on every lane: 23 s for PLAIN_CROP)
+MOTION_CROP = (0.4375, 0.5625, 0.4375, 0.5625)
+SPP_REALISTIC = 1
+REALISTIC_APERTURE_MM = 10.0
+SWEEP_SET, SWEEP_RES = "acc=bvh,kdtree", 256
+# bytes the motion instance loads beside the static one's: a triangle's
+# 48-byte delta row (three float4) and a live ray's time; 18 float32
+# operations a triangle test more (three vertices lerped: 9 mul, 9 add)
+DELTA_ROW_BYTES, TIME_BYTES, OPS_PER_LERP = 48, 4, 18
 # kd-tree, restricted BSP with 3 / 7 / 13 directions, one tree with a
 # direction per node and one with kd nodes mixed in: (name, nbDirections)
 KD_TREES = [("kdtree", None), ("rbsp", 3), ("rbsp", 7), ("rbsp", 13),
@@ -250,7 +292,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.time()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also says when it ended, in seconds
+    since the script started (`t_s`)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.time() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -444,13 +493,16 @@ def ptxas_lines(log: str) -> dict:
 
 
 def launch_counts() -> dict:
-    """Launches of every kernel since the counts were last set to 0."""
-    return {"traverse_wide": tw.launches, "traverse_treelets": tt.launches,
+    """Launches of every kernel since the counts were last set to 0 (K1's
+    motion instance apart from its static ones)."""
+    return {"traverse_wide": tw.launches,
+            "traverse_wide_motion": tw.launches_motion,
+            "traverse_treelets": tt.launches,
             "traverse_kdbsp": tk.launches, **tr.launches}
 
 
 def zero_launches() -> None:
-    tw.launches = tt.launches = tk.launches = 0
+    tw.launches = tw.launches_motion = tt.launches = tk.launches = 0
     for k in tr.launches:
         tr.launches[k] = 0
 
@@ -542,21 +594,22 @@ def plain_traversal(kind):
     """Kernel `kind`'s plain version behind the `isect` interface."""
     plain_fn = KERNELS[kind]["plain"]
 
-    def plain_isect(ds_, st_, o_, d_, tmax_, any_hit=False, with_stats=True):
-        return plain_fn(ds_, st_, o_, d_, tmax_, any_hit=any_hit)
+    def plain_isect(ds_, st_, o_, d_, tmax_, any_hit=False, with_stats=True,
+                    **kw):
+        return plain_fn(ds_, st_, o_, d_, tmax_, any_hit=any_hit, **kw)
     return plain_isect
 
 
 def against_plain_render(scene, tables, kind, dev, isect=None,
-                         plain_isect=None):
-    """1 spp of the PLAIN_CROP window through the kernel against 1 spp of it
+                         plain_isect=None, crop=PLAIN_CROP):
+    """1 spp of the `crop` window through the kernel against 1 spp of it
     through the kernel's plain version, on the same tables. `isect` /
     `plain_isect` replace the renderer's own traversal and kernel `kind`'s
     plain version (for the re-queue driver and its plain mode)."""
     if plain_isect is None:
         plain_isect = plain_traversal(kind)
     scene = dataclasses.replace(
-        scene, film=dataclasses.replace(scene.film, crop=PLAIN_CROP))
+        scene, film=dataclasses.replace(scene.film, crop=crop))
     renderer = Renderer(scene, device=dev, tables=tables, isect=isect)
     before = launch_counts()[kind]
     img_k = renderer.image(renderer.render(spp=1))
@@ -573,7 +626,7 @@ def against_plain_render(scene, tables, kind, dev, isect=None,
         fail(f"{kind} render differs from its plain-version render: rel {rel}")
     if not float(img_p.mean()) > 0.0:
         fail(f"{kind}: the cropped plain-version render is black")
-    return {"plain_render_s": round(seconds, 1), "plain_render_crop": PLAIN_CROP,
+    return {"plain_render_s": round(seconds, 1), "plain_render_crop": crop,
             "plain_vs_kernel_mean_rel": rel,
             "plain_vs_kernel_max_pixel_abs": float(np.abs(img_k - img_p).max())}
 
@@ -736,6 +789,32 @@ def main(argv) -> int:
             c for base in wide_cases if base[0] in ("quadric_kinds",
                                                     "museum_65k")
             for c in edge_cases(*base, seed=43)], checks)
+        # K1's motion instance: the motion museum (the small museum's
+        # triangles moving over the shutter) at random shutter times, on
+        # its single-level tables and on its two-level upload (a motion
+        # scene goes through K1 over the rows the treelets are cut from),
+        # and on the edge batches; then timed beside the static instance
+        mdir = os.path.join(tmp, "motion")
+        t0 = time.time()
+        sc_motion = flatten(parse_file(testscenes.motion_museum(
+            mdir, **MUSEUM_65K)), mdir)
+        tables_m = upload(sc_motion, light_strategy="spatial", device=dev)
+        motion_upload_s = time.time() - t0
+        if (not tables_m[1].has_motion or not tables_m[1].cam_animated
+                or tables_m[1].two_level):
+            fail(f"the motion museum's tables are not what it asks for: "
+                 f"{tables_m[1]}")
+        rays_m = motion_rays(sc_motion, *tables_m, dev, 47)
+        ds2l, st2l = upload(sc_motion, light_strategy="spatial", device=dev,
+                            two_level=True)
+        half_m = tuple(x[N_CHECK_RAYS // 2:].contiguous() for x in rays_m)
+        motion_cases = [("motion_museum", *tables_m, *rays_m),
+                        ("motion_museum_two_level", ds2l, st2l, *half_m)]
+        check_motion_cases(motion_cases + motion_edge_cases(
+            *motion_cases[0], seed=53), checks)
+        del ds2l, st2l, motion_cases
+        motion_shape = motion_shape_timing(tables_m, half_m, "motion_museum")
+        del tables_m, rays_m, half_m
         treelet_edges = [c for base in treelet_cases
                          for c in edge_cases(*base, seed=41)]
         check_cases("traverse_treelets", treelet_cases + treelet_edges,
@@ -753,7 +832,9 @@ def main(argv) -> int:
                     "traverse_kdbsp/kdtree/quadric_kinds/closest/stats",
                     "traverse_kdbsp/bspcluster3/museum_1k/closest/stats",
                     "traverse_requeue/quadric_kinds_300/r16/closest",
-                    "traverse_requeue/museum_65k/r2/closest"):
+                    "traverse_requeue/museum_65k/r2/closest",
+                    "traverse_wide_motion/motion_museum/closest/stats",
+                    "traverse_wide_motion/motion_museum_two_level/any/stats"):
             if checks[tag]["hits"] < 1000:
                 fail(f"{tag}: hardly hit, the check is vacuous")
         emit({"phase": "kernels", "rays": N_CHECK_RAYS, "ulp_limit": ULP_LIMIT,
@@ -762,6 +843,8 @@ def main(argv) -> int:
               "kd_small_builds_s": round(kd_small_builds_s, 2),
               "kd_checks_s": round(kd_checks_s, 1),
               "requeue_checks_s": round(requeue_checks_s, 1),
+              "motion_museum_write_flatten_upload_s": round(motion_upload_s, 2),
+              "traverse_wide_motion_at_main_shape": motion_shape,
               "launches_during_checks": launch_counts(),
               "checks": checks})
         if quick:
@@ -1003,6 +1086,11 @@ def main(argv) -> int:
     mats = materials(dev, with_profile, (sc65, tables65))
     emit({"phase": "materials", **mats})
 
+    # ---- motion: the moving museum through K1's motion instance, the
+    # realistic camera, the sweep
+    mot = motion(dev, (sc65, tables65))
+    emit({"phase": "motion", **mot})
+
     kernels = []
     # K1 at the shape where the main path launches it: the 63,558-triangle
     # museum's secondary rays (its 1M-museum figures beside them)
@@ -1044,6 +1132,35 @@ def main(argv) -> int:
         kernels[-1]["materials_fwd_bwd_launches"] = (
             mats["gradients"]["launches"][kind])
         if kind == "traverse_wide":
+            ms_ = motion_shape
+            kernels[-1]["motion_launches"] = mot["launches"][
+                "traverse_wide_motion"]
+            kernels[-1]["motion_fwd_bwd_launches"] = mot["gradients"][
+                "launches"]["traverse_wide_motion"]
+            kernels[-1]["motion_instance"] = {
+                "replaces": "tpupt/integrators/path.py:330 (the JAX "
+                            "package's XLA wide walker for motion scenes, "
+                            "tpupt/accel/traverse.py:314)",
+                "launches": mot["launches"]["traverse_wide_motion"],
+                "ms": ms_["closest"]["kernel_ms"],
+                "kernel_alone_ms": ms_["closest"]["kernel_alone_ms"],
+                "any_hit_ms": ms_["any"]["kernel_ms"],
+                "any_hit_kernel_alone_ms": ms_["any"]["kernel_alone_ms"],
+                "static_instance_alone_ms":
+                    ms_["closest"]["static_instance_alone_ms"],
+                "any_hit_static_instance_alone_ms":
+                    ms_["any"]["static_instance_alone_ms"],
+                "plain_ms": ms_["closest"]["plain_ms"],
+                "bound_ms": ms_["closest"]["bound_ms"],
+                "bound_by": ms_["closest"]["bound_by"],
+                "any_hit_bound_ms": ms_["any"]["bound_ms"],
+                "max_abs_err": max(
+                    [c["max_abs_err"] for tag, c in checks.items()
+                     if tag.startswith("traverse_wide_motion/")
+                     and isinstance(c, dict)]
+                    + [ms_["closest"]["max_abs_err"],
+                       ms_["any"]["max_abs_err"]]),
+                "rays_per_launch": ms_["rays"]}
             w1m = shape["traverse_wide"]
             kernels[-1]["at_museum_1m"] = {
                 "ms": w1m["closest"]["kernel_ms"],
@@ -1195,13 +1312,15 @@ def appearance(dev, with_profile, untextured) -> dict:
 
 
 def emitter_grads(r, params, spp, emitters, rtol, tag,
-                  calls_per_vertex: int = 2) -> dict:
+                  calls_per_vertex: int = 2,
+                  kind: str = "traverse_wide") -> dict:
     """`value_and_grad` of `bench_loss` with respect to `params` over `spp`
     samples (one call a sample) with the launch counts set to 0 just before
     and read just after. Fails unless every gradient is finite and nonzero,
     sum over the `emitters` tables of table * gradient equals the loss to
-    `rtol` (the film is linear in them jointly), and K1 launched
-    `calls_per_vertex` times a vertex of every batch and nothing else did."""
+    `rtol` (the film is linear in them jointly), and `kind` (K1's static
+    or motion instance) launched `calls_per_vertex` times a vertex of every
+    batch and nothing else did."""
     torch.cuda.reset_peak_memory_stats()
     bytes_before = torch.cuda.memory_allocated()
     zero_launches()
@@ -1224,7 +1343,7 @@ def emitter_grads(r, params, spp, emitters, rtol, tag,
     want = (calls_per_vertex * (r.scene.integrator.max_depth + 1)
             * r.n_batches * spp)
     for k, c in counts.items():
-        if c != (want if k == "traverse_wide" else 0):
+        if c != (want if k == kind else 0):
             fail(f"{tag} value_and_grad launched {k} {c} times")
     ms = sum(step_ms) / spp
     return {
@@ -1365,6 +1484,320 @@ def materials(dev, with_profile, untextured) -> dict:
                      "values_compared_bit_for_bit": sampler_values,
                      "seconds": round(t_samplers, 2)},
         **profiled}
+
+
+def motion_rays(scene, ds, st, dev, seed):
+    """2 x 131,072 rays of a motion scene at random shutter times: camera
+    rays of its animated camera through random film positions, and the
+    secondary rays scattered from their hits (found by K1's motion instance)
+    at the same times. Returns (o, d, tmax, time), dead lanes at tmax 0."""
+    n = N_CHECK_RAYS // 2
+    gen = np.random.default_rng(seed)
+    p_raster = torch.from_numpy(
+        (gen.random((n, 2)) * MAIN_RES).astype(np.float32)).to(dev)
+    tm = torch.from_numpy(gen.random(n, dtype=np.float32)).to(dev)
+    cam = scene.camera
+    o, d = generate_rays(cam.type, ds.raster_to_camera, ds.cam_to_world,
+                         p_raster, torch.zeros_like(p_raster),
+                         cam.lens_radius, cam.focal_distance,
+                         cam_q=ds.cam_q, cam_tr=ds.cam_tr, time=tm)
+    o, d = o.contiguous(), d.contiguous()
+    tmax = torch.full((n,), float("inf"), device=dev)
+    hit, _ = tw.intersect_wide_cuda(ds, st, o, d, tmax, time=tm)
+    o2, d2, tmax2 = secondary_rays(ds, st, hit, o, d, seed + 1)
+    return (torch.cat([o, o2]).contiguous(), torch.cat([d, d2]).contiguous(),
+            torch.cat([tmax, tmax2]).contiguous(),
+            torch.cat([tm, tm]).contiguous())
+
+
+def motion_edge_cases(name, ds, st, o, d, tmax, tm, seed):
+    """`edge_cases` of a motion batch, each with its rays' times."""
+    out = []
+    for case in edge_cases(name, ds, st, o, d, tmax, seed):
+        n = case[3].shape[0]
+        if n == 1:
+            i = int(torch.nonzero(tmax > 0)[0])
+            t_ = tm[i:i + 1]
+        else:
+            t_ = tm[:n]
+        out.append((*case, t_.contiguous()))
+    return out
+
+
+def check_motion_cases(cases, checks):
+    """K1's motion instance against the plain walker at the rays' times on
+    each case (name, ds, st, o, d, tmax, time), closest and any hit, with
+    and without counters; fails the run on any miss, or if a call did not
+    launch the motion instance alone."""
+    for name, ds, st, o, d, tmax, tm in cases:
+        for any_hit in (False, True):
+            mode = "any" if any_hit else "closest"
+            t0 = time.time()
+            plain = trav.intersect_wide(ds, st, o, d, tmax, any_hit=any_hit,
+                                        time=tm)
+            torch.cuda.synchronize()
+            checks[f"traverse_wide_motion/{name}/{mode}/plain_ms"] = (
+                time.time() - t0) * 1e3
+            for with_stats in (True, False):
+                tag = (f"traverse_wide_motion/{name}/{mode}/"
+                       f"{'stats' if with_stats else 'nostats'}")
+                before = (tw.launches, tw.launches_motion)
+                out = tw.intersect_wide_cuda(ds, st, o, d, tmax,
+                                             any_hit=any_hit,
+                                             with_stats=with_stats, time=tm)
+                torch.cuda.synchronize()
+                if (tw.launches, tw.launches_motion) != (before[0],
+                                                         before[1] + 1):
+                    fail(f"{tag}: the call did not launch the motion "
+                         "instance alone")
+                res = compare_hits(tag, out, plain, with_stats)
+                res["kernel_ms"] = time_ms(
+                    lambda: tw.intersect_wide_cuda(
+                        ds, st, o, d, tmax, any_hit=any_hit,
+                        with_stats=with_stats, time=tm), 5)
+                checks[tag] = res
+
+
+def motion_shape_timing(tables, rays, tag) -> dict:
+    """K1's motion instance on `rays` = (o, d, tmax, time) (closest hit) and
+    on the same rays cut to half the scene's diagonal (any hit): held
+    against the plain walker; the wrapper call and the kernel alone, the
+    static instance on the same rays and tables beside it (which reads no
+    delta and no time, so it tests the triangles at shutter open), and the
+    bound: `table_bound` of the walk plus a DELTA_ROW_BYTES delta row for
+    each distinct triangle row read and TIME_BYTES for each live ray, and
+    OPS_PER_LERP operations a prim test (the scene has triangles only).
+    The static instance at the rays' own times walks other geometry (it
+    tests the triangles where they stand at shutter open); the cost of the
+    lerp itself is the motion instance with every ray at time 0, which must
+    find exactly what the static one finds, timed in turns beside it."""
+    ds, st = tables
+    if st.n_spheres:
+        fail("the motion timing counts every prim test as a triangle's")
+    static_st = st._replace(has_motion=False)
+    o2, d2, tmax2, tm = rays
+    n = o2.shape[0]
+    half = float(torch.linalg.norm(ds.world_hi - ds.world_lo)) * 0.5
+    lib = tw.get_lib()
+    out = {"rays": n}
+    for mode, any_hit, tmax in (
+            ("closest", False, tmax2),
+            ("any", True, torch.where(tmax2 > 0, half, 0.0).contiguous())):
+        kernel = tw.intersect_wide_cuda(ds, st, o2, d2, tmax,
+                                        any_hit=any_hit, time=tm)
+        torch.cuda.synchronize()
+        masks = touched_masks("traverse_wide", ds, o2.device)
+        t0 = time.time()
+        plain = trav.intersect_wide(ds, st, o2, d2, tmax, any_hit=any_hit,
+                                    touched=masks, time=tm)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        res = compare_hits(f"traverse_wide_motion/{tag}/{mode}", kernel, plain)
+        live = int((tmax > 0).sum())
+
+        def run(lib_, st_=st, tmax=tmax, any_hit=any_hit):
+            return tw.intersect_wide_cuda(ds, st_, o2, d2, tmax,
+                                          any_hit=any_hit, lib=lib_, time=tm)
+
+        static = functools.partial(run, st_=static_st)
+        # at time 0 every vertex lerps to itself (v + 0 * dv = v), so the
+        # motion instance must find what the static one finds, bit for bit,
+        # counters included: the same walk, plus the delta loads and lerps
+        zeros = torch.zeros_like(tm)
+        at0 = tw.intersect_wide_cuda(ds, st, o2, d2, tmax, any_hit=any_hit,
+                                     time=zeros)
+        same = compare_hits(f"traverse_wide_motion/{tag}/{mode}/time0",
+                            at0, static(None))
+        if same["max_ulp"]:
+            fail(f"{tag}/{mode}: the motion instance at time 0 differs from "
+                 f"the static instance: {same}")
+
+        def run0(lib_, tmax=tmax, any_hit=any_hit):
+            return tw.intersect_wide_cuda(ds, st, o2, d2, tmax,
+                                          any_hit=any_hit, lib=lib_,
+                                          time=zeros)
+
+        turns = {"static": [], "motion_at_time_0": []}
+        for name, fn in (("static", static), ("motion_at_time_0", run0),
+                         ("motion_at_time_0", run0), ("static", static)):
+            turns[name].append(kernel_alone_ms(fn, lib))
+        bound = table_bound("traverse_wide", ds, masks, kernel[1], live, n)
+        is_tri = ds.prim_rows.view(torch.int32)[:, 17] == 1
+        delta_rows = int((masks[1] & is_tri).sum())
+        bytes_moved = (bound["bytes_moved_at_least"]
+                       + DELTA_ROW_BYTES * delta_rows + TIME_BYTES * live)
+        ops = bound["float_ops"] + OPS_PER_LERP * bound["prim_tests"]
+        by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        by_ops = ops / FP32_OPS_PER_S * 1e3
+        res.update(
+            kernel_ms=time_ms(lambda: run(None), 10),
+            kernel_alone_ms=kernel_alone_ms(run, lib),
+            static_instance_ms=time_ms(lambda: static(None), 10),
+            static_instance_alone_ms=kernel_alone_ms(static, lib),
+            time0_equals_static_instance=same,
+            alone_ms_in_turns_static_vs_motion_at_time_0=turns,
+            plain_ms=plain_ms, live_rays=live,
+            node_visits=bound["node_visits"], prim_tests=bound["prim_tests"],
+            distinct_rows_read=bound["distinct_rows_read"],
+            delta_rows_read=delta_rows,
+            static_bound_ms=bound["bound_ms"],
+            bytes_moved_at_least=bytes_moved, float_ops=ops,
+            bound_ms=max(by_bytes, by_ops),
+            bound_by="bytes" if by_bytes >= by_ops else "operations")
+        out[mode] = res
+    return out
+
+
+def vignetted_share(r, sample_idx: int = 0) -> float:
+    """The share of one sample's camera rays that the realistic camera's
+    lens stack stops (its exit-pupil boxes in use)."""
+    cam, sampler = r.scene.camera, r.sampler
+    dead = total = 0
+    for b in range(r.n_batches):
+        px_b, py_b = r._px_b[b], r._py_b[b]
+        jx, jy = sampler.camera_jitter(px_b, py_b, sample_idx)
+        p_raster = torch.stack([px_b.to(torch.float32) + jx,
+                                py_b.to(torch.float32) + jy], -1)
+        u = torch.stack([sampler.dim(px_b, py_b, sample_idx, 2),
+                         sampler.dim(px_b, py_b, sample_idx, 3)], -1)
+        _, _, alive, _ = realistic_rays(
+            cam.lens_data, cam.lens_z, r.ds.cam_to_world, p_raster, u,
+            r.cfg.xres, r.cfg.yres, cam.film_diag, pupil=r.pupil)
+        valid = r._valid_b[b]
+        dead += int((valid & ~alive).sum())
+        total += int(valid.sum())
+    return dead / max(total, 1)
+
+
+def motion(dev, static_museum) -> dict:
+    """The motion phase: tools/testscenes.py `motion_museum` at MUSEUM_65K's
+    size through the entry points, SPP_MOTION samples at MAIN_RES through
+    K1's motion instance with the launch counts set to 0 just before and
+    read just after (no static K1 launch), beside `static_museum` = (scene,
+    tables) rendered in this phase, held against the plain walker on
+    PLAIN_CROP, and one fwd+bwd sample of `value_and_grad` (the film linear
+    in light_L); `realistic_museum` through K1's static instance, with the
+    share of camera rays vignetted, against the plain walker on the crop;
+    and tools/sweep.py over SWEEP_SET at SWEEP_RES, 1 spp, on the card, its
+    records read back."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = testscenes.motion_museum(tmp, **MUSEUM_65K)
+        t_gen = time.time() - t0
+        t0 = time.time()
+        scene = flatten(parse_file(path), tmp)
+        t_flatten = time.time() - t0
+        rdir = os.path.join(tmp, "realistic")
+        real_path = testscenes.realistic_museum(
+            rdir, aperture_mm=REALISTIC_APERTURE_MM, **MUSEUM_65K)
+        sc_real = flatten(parse_file(real_path), rdir)
+
+        # the sweep: the plain museum with its accelerator as $acc
+        sweep_path = os.path.join(tmp, "sweep_museum.pbrt")
+        text = open(os.path.join(tmp, "museum.pbrt")).read()
+        with open(sweep_path, "w") as f:
+            f.write(text.replace("WorldBegin", "Accelerator $acc\nWorldBegin"))
+        out_dir = os.path.join(tmp, "sweep_out")
+        zero_launches()
+        t0 = time.time()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = sweep_tool.main([sweep_path, "--set", SWEEP_SET,
+                                  "--resolution", f"{SWEEP_RES}x{SWEEP_RES}",
+                                  "--spp", "1", "--outdir", out_dir])
+        torch.cuda.synchronize()
+        sweep_s = time.time() - t0
+        sweep_counts = launch_counts()
+        if rc != 0:
+            fail(f"tools/sweep.py exited with {rc}")
+        records = json.load(open(os.path.join(out_dir, "sweep.json")))
+        files = sorted(os.listdir(out_dir))
+        for rec in records:
+            want = [f"{rec['tag']}.png"] + [f"{rec['tag']}.{k}.txt" for k in (
+                "node_visits", "leaf_visits", "prim_tests", "path_length")]
+            if not set(want) <= set(files) or not rec["mean_node_visits"] > 0:
+                fail(f"the sweep's record or files of {rec['tag']} are "
+                     f"missing: {rec}, {files}")
+        calls = 2 * (scene.integrator.max_depth + 1)
+        if ([r["tag"] for r in records] != ["acc-bvh", "acc-kdtree"]
+                or sweep_counts["traverse_wide"] != calls
+                or sweep_counts["traverse_kdbsp"] != calls):
+            fail(f"the sweep did not render its configs through K1 and K2: "
+                 f"{records}, {sweep_counts}")
+    t0 = time.time()
+    tables = upload(scene, light_strategy=scene.integrator.light_strategy,
+                    device=dev)
+    torch.cuda.synchronize()
+    t_upload = time.time() - t0
+    ds, st = tables
+    if not (st.has_motion and st.cam_animated) or st.two_level:
+        fail(f"the motion museum's tables are not what it asks for: {st}")
+    r = Renderer(scene, device=dev, tables=tables)
+    film, ms, counts = drive(r, {"traverse_wide_motion": 1}, SPP_MOTION)
+    fin, lum = check_image(r, film, "motion_museum")
+    img = r.image(film)
+    del film
+    r_static = Renderer(static_museum[0], device=dev, tables=static_museum[1])
+    _, ms_static, _ = drive(r_static, {"traverse_wide": 1}, 1)
+    del r_static
+    plain = against_plain_render(scene, tables, "traverse_wide_motion", dev,
+                                 plain_isect=plain_traversal("traverse_wide"),
+                                 crop=MOTION_CROP)
+    grad_line = emitter_grads(r, {k: getattr(ds, k) for k in GRAD_PARAMS}, 1,
+                              ("light_L",), LINEARITY_RTOL, "motion",
+                              kind="traverse_wide_motion")
+    expected = 2 * (scene.integrator.max_depth + 1) * r.n_batches * SPP_MOTION
+    batches = r.n_batches
+    del r
+
+    # the realistic camera through K1's static instance
+    t0 = time.time()
+    tables_r = upload(sc_real, light_strategy=sc_real.integrator.light_strategy,
+                      device=dev)
+    rr = Renderer(sc_real, device=dev, tables=tables_r)
+    torch.cuda.synchronize()
+    t_real_setup = time.time() - t0
+    if rr.pupil is None or tables_r[1].has_motion:
+        fail("the realistic museum has no lens stack")
+    film_r, ms_r, counts_r = drive(rr, {"traverse_wide": 1}, SPP_REALISTIC)
+    fin_r, lum_r = check_image(rr, film_r, "realistic_museum")
+    del film_r
+    vig = vignetted_share(rr)
+    plain_r = against_plain_render(sc_real, tables_r, "traverse_wide", dev,
+                                   crop=MOTION_CROP)
+    lens = sc_real.camera.lens_data
+    return {
+        "scene": "tools/testscenes.py motion_museum", **MUSEUM_65K,
+        "triangles": st.n_tris, "two_level": st.two_level,
+        "has_motion": st.has_motion, "cam_animated": st.cam_animated,
+        "host_s": {"write_scenes": round(t_gen, 2),
+                   "parse_flatten": round(t_flatten, 2),
+                   "bvh_upload_deltas": round(t_upload, 2)},
+        "resolution": [MAIN_RES, MAIN_RES],
+        "max_depth": scene.integrator.max_depth, "spp": SPP_MOTION,
+        "ms_per_spp": ms,
+        "camera_rays_per_s": MAIN_RES * MAIN_RES / (ms * 1e-3),
+        "static_museum_ms_per_spp": ms_static,
+        "batches": batches, "launches": counts,
+        "launches_expected": {"traverse_wide_motion": expected,
+                              "traverse_wide": 0},
+        "finite_pixel_share": fin, "mean_luminance": lum,
+        "image_mean_rgb": [float(x) for x in img.reshape(-1, 3).mean(0)],
+        **plain, "gradients": grad_line,
+        "realistic": {
+            "scene": "tools/testscenes.py realistic_museum",
+            "lens_rows_mm": testscenes.TEST_LENS_ROWS,
+            "aperture_stop_mm": REALISTIC_APERTURE_MM,
+            "rear_gap_after_focus_m": float(lens[-1, 1]),
+            "setup_s_upload_and_exit_pupil": round(t_real_setup, 2),
+            "spp": SPP_REALISTIC, "ms_per_spp": ms_r,
+            "camera_rays_per_s": MAIN_RES * MAIN_RES / (ms_r * 1e-3),
+            "launches": counts_r, "vignetted_camera_ray_share": vig,
+            "finite_pixel_share": fin_r, "mean_luminance": lum_r,
+            **plain_r},
+        "sweep": {"set": SWEEP_SET, "resolution": SWEEP_RES, "spp": 1,
+                  "seconds": round(sweep_s, 2), "launches": sweep_counts,
+                  "records": records}}
 
 
 def bench_loss(film):

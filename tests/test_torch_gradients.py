@@ -8,7 +8,10 @@ through the shading chain only, with respect to the parameter tables of
 the JAX package's training step: the six of an untextured scene, and on a
 scene of every texture class under an environment map also the texture
 atlas and the environment map. The film-level gradients and the training
-step are in test_torch_train.py.
+step are in test_torch_train.py; the textured scene's and the materials
+museum's cases, and the checks that belong to them, in
+test_torch_gradients_appearance.py and test_torch_gradients_materials.py,
+which share this file's helpers and tolerances.
 
 The JAX side runs its own `path_li` eagerly, with the bounce loop unrolled
 (`unroll=True`, as on the TPU) and its XLA wide-BVH walker jitted once per
@@ -188,18 +191,24 @@ def _close_grads(g_port, g_jax, what, tol=GRAD_TOL):
         assert err <= tol * scale, f"{what} {k}: {err} > {tol} * {scale}"
 
 
-@pytest.mark.parametrize("name", list(SCENES) + ["appearance", "materials"])
+@pytest.mark.parametrize("name", list(SCENES))
 def test_per_ray_gradients_match_jax(name, tmp_path, monkeypatch):
     """d/dtheta of sum(W * L) for a fixed random W, L the per-ray radiance
-    of path_li over the renderer's camera rays of sample 0. On the
+    of path_li over the renderer's camera rays of sample 0, with respect to
+    the six tables of an untextured scene. The textured scene's and the
+    materials museum's cases are in test_torch_gradients_appearance.py and
+    test_torch_gradients_materials.py."""
+    per_ray_gradients_match_jax(name, tmp_path, monkeypatch)
+
+
+def per_ray_gradients_match_jax(name, tmp_path, monkeypatch):
+    """The per-ray comparison of `name`'s scene (see `_pair`). On the
     "appearance" scene with respect to all eight tables: the bench's four,
     the texture atlas and the environment map, whose gathers' cotangents
     add up per texel, and the camera matrices (whose gradient reaches the
-    noise textures; test_noise_abs_takes_the_jax_tie_rule). On the
-    "materials" scene with respect to the bench's four tables; the JAX
-    package's mat_kd gradient is NaN on the rows of materials other than
-    hair (test_hair_lobes_of_other_lanes_make_the_jax_kd_gradient_nan), so
-    mat_kd is compared on its other rows."""
+    noise textures). On the "materials" scene with respect to the bench's
+    four tables; the JAX package's mat_kd gradient is NaN on the rows of
+    materials other than hair, so mat_kd is compared on its other rows."""
     eager_fourier_loops(monkeypatch)
     sj, rj, sp, rt = _pair(name, tmp_path)
     names = {"appearance": PARAMS, "materials": BENCH}.get(name, CORE)
@@ -434,120 +443,3 @@ def test_value_and_grad_refuses_other_fields_and_needs_a_card():
     with pytest.raises(NotImplementedError, match="item 13"):
         train_step_fn(sc, ["cpu", "cpu"], np.zeros((12, 12, 3), np.float32),
                       device="cpu")
-
-
-def test_hair_lobes_of_other_lanes_make_the_jax_kd_gradient_nan():
-    """The JAX package evaluates its hair lobes on every lane, with each
-    row's own extra[0:3] as (beta_m, beta_n, alpha): on a row whose
-    extra[1] is 0 (a matte, plastic, metal or Fourier row; a Disney row
-    without sheen) the logistic scale is 0 and the azimuthal term NaN, and
-    that NaN times the discarded lane's zero cotangent reaches kd (sigma_a,
-    through the attenuation). Its kd gradient is NaN on exactly those rows;
-    the port evaluates the other lanes with the default fiber, and its
-    gradient is finite there and equal on the hair rows."""
-    from tpupt.materials import bsdf as jb
-
-    txt = _SCENE2.replace('"02sequence"', '"halton"').replace(
-        'WorldEnd', 'Material "hair" "float beta_n" [0.4]\n'
-        'Shape "trianglemesh" "point P" [0 0 0  1 0 0  0 1 0] '
-        '"integer indices" [0 1 2]\nWorldEnd')
-    sj = jax_flatten(jax_parse_string(txt))
-    rj = JaxRenderer(sj)
-    dt, st = from_numpy(*testscenes.tables_as_numpy(rj.ds, rj.st),
-                        device="cpu")
-    types = dt.mat_type.numpy()
-    gen = np.random.default_rng(4)
-    n = 64 * len(types)
-    mat = np.repeat(np.arange(len(types), dtype=np.int32), 64)
-    wo, wi = (gen.normal(0, 1, (n, 3)).astype(np.float32) for _ in range(2))
-    wo /= np.linalg.norm(wo, axis=-1, keepdims=True)
-    wi /= np.linalg.norm(wi, axis=-1, keepdims=True)
-    uv = gen.random((n, 2)).astype(np.float32)
-    feats = frozenset({"hair"})
-
-    def jax_f(kd):
-        mp = jb.gather_mat_params(rj.ds._replace(mat_kd=kd),
-                                  jnp.asarray(mat), uv=jnp.asarray(uv))
-        f, pdf = jb.eval_pdf(mp, jnp.asarray(wo), jnp.asarray(wi), feats)
-        return f.sum() + pdf.sum()
-
-    gj = np.asarray(jax.grad(jax_f)(rj.ds.mat_kd))
-    kd = dt.mat_kd.clone().requires_grad_()
-    mp = tbsdf.gather_mat_params(dt._replace(mat_kd=kd), torch.from_numpy(mat),
-                                 uv=torch.from_numpy(uv))
-    f, pdf = tbsdf.eval_pdf(mp, torch.from_numpy(wo), torch.from_numpy(wi),
-                            feats)
-    (gt,) = torch.autograd.grad(f.sum() + pdf.sum(), kd)
-    zero_bn = dt.mat_extra.numpy()[:, 1] == 0
-    assert zero_bn.any() and (types == MAT_HAIR).any()
-    np.testing.assert_array_equal(~np.isfinite(gj).all(-1), zero_bn)
-    assert torch.isfinite(gt).all()
-    hair_rows = types == MAT_HAIR
-    _close_grads({"mat_kd": gt[torch.from_numpy(hair_rows)]},
-                 {"mat_kd": gj[hair_rows]}, "hair rows")
-
-
-def test_noise_abs_takes_the_jax_tie_rule():
-    """Gradient noise is exactly 0 on the lattice lines of its cells, so a
-    hit with two coordinates 0 (the appearance scene's centre pixel hits a
-    marble statue at x = z = 0) takes |noise| at a tie in every octave
-    whose scale keeps it there. jnp.abs's derivative at 0 is +1, torch.abs's
-    0; the port's turbulence and windy take the JAX package's rule, and
-    their gradients with respect to the point agree with jax.grad's there
-    (with torch.abs the sixth octave's term was missing)."""
-    from tpupt.textures import textures as jtex
-    from tpupt_torch.textures import textures as ttex
-
-    p = np.array([[0.0, 2.4529257, 0.0], [0.0, 1.25, 0.0],
-                  [0.3, 0.7, 0.1]], np.float32)
-    assert float(ttex.perlin(torch.tensor(p[:1] * 1.99 ** 5))) == 0.0
-    for octaves in (1, 6):
-        gj = np.asarray(jax.grad(lambda q: jtex.turbulence(
-            q, 0.5, octaves).sum())(jnp.asarray(p)))
-        pt = torch.from_numpy(p).requires_grad_()
-        (gt,) = torch.autograd.grad(ttex.turbulence(pt, 0.5, octaves).sum(),
-                                    pt)
-        np.testing.assert_allclose(gt.numpy(), gj, rtol=1e-5, atol=1e-6)
-    x = torch.zeros(2, requires_grad=True)
-    (g,) = torch.autograd.grad(ttex.abs_tie_up(x).sum(), x)
-    assert g.tolist() == [1.0, 1.0] == [float(jax.grad(jnp.abs)(0.0))] * 2
-
-
-def test_subsurface_probe_is_detached_in_the_port():
-    """The subsurface exit's probe ray starts at the hit point, which moves
-    with the camera. The JAX package hands its probe to the raw traversal
-    (integrators/path.py:665, materials/bssrdf.py:150), not to the detaching
-    wrapper, so jax.grad with respect to the camera matrices of a scene
-    with a subsurface material raises (reverse mode through its walker's
-    loop); with respect to the material and light tables the probe's inputs
-    carry no tangent and it differentiates (the materials case of
-    test_per_ray_gradients_match_jax). The port detaches every traversal
-    input, the probe's too (its replay requires it), and its camera
-    gradient on the same scene is finite and nonzero."""
-    from test_torch_materials import _SLAB
-
-    sj = jax_flatten(jax_parse_string(_SLAB))
-    rj = JaxRenderer(sj)
-    isect, isect_p = _jax_walkers(rj.st)
-    n = rj.batch
-
-    def jax_L(cam_to_world):
-        ds = rj.ds._replace(cam_to_world=cam_to_world)
-        o, d = jax_generate_rays(sj.camera.type, ds.raster_to_camera,
-                                 ds.cam_to_world,
-                                 jnp.stack([rj.px, rj.py], -1).astype(
-                                     jnp.float32) + 0.5,
-                                 jnp.zeros((n, 2)), 0.0, 1.0)
-        L, _ = jax_path_li(ds, rj.st, rj.sampler, 1, 1.0, rj.px, rj.py,
-                           jnp.uint32(0), o, d, isect=isect,
-                           isect_p=isect_p, unroll=True)
-        return L.sum()
-
-    with pytest.raises(ValueError, match="Reverse-mode differentiation"):
-        jax.grad(jax_L)(rj.ds.cam_to_world)
-    r = Renderer(flatten(parse_string(_SLAB)), device="cpu")
-    v, g, _ = r.value_and_grad(lambda f: f.rgb.sum(),
-                               {"cam_to_world": r.ds.cam_to_world})
-    assert r.st.mat_features == {"sss"} and float(v) > 0
-    assert torch.isfinite(g["cam_to_world"]).all()
-    assert float(g["cam_to_world"].abs().max()) > 0

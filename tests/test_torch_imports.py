@@ -152,3 +152,29 @@ def test_the_appearance_modules_are_among_them():
                          text=True, env=env, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "JAX False" in out.stdout and "PIL False" in out.stdout
+
+
+def test_the_motion_camera_and_tool_modules_are_among_them():
+    """The cameras-and-motion slice and its tools: the realistic camera,
+    the sweep, the scene printer and the logging / profiler glue import
+    without a card, without building anything and without jax or tpupt;
+    K1's wrapper starts with both launch counts at 0."""
+    names = set(_module_names())
+    assert {"tpupt_torch.cameras.realistic", "tpupt_torch.tools.sweep",
+            "tpupt_torch.tools.catscene", "tpupt_torch.utils.logging"} <= names
+    code = (
+        "import sys\n"
+        "import tpupt_torch.ops.traverse_wide as w\n"
+        "from tpupt_torch.cameras.realistic import realistic_rays\n"
+        "from tpupt_torch.tools import catscene, sweep, render\n"
+        "from tpupt_torch.utils import logging\n"
+        "assert w._LIB is None and w.launches == w.launches_motion == 0\n"
+        "assert all(hasattr(logging, f) for f in ('set_level', "
+        "'set_logfile', 'annotate', 'profile_to'))\n"
+        "print('JAX', any(m.split('.')[0] in ('jax', 'jaxlib', 'tpupt') "
+        "for m in sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "JAX False" in out.stdout

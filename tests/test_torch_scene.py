@@ -13,7 +13,7 @@ from tpupt.scene.device import upload as jax_upload
 from tpupt.scene.flatten import flatten as jax_flatten
 from tpupt.scene.loader import parse_file as jax_parse_file
 from tpupt.scene.loader import parse_string as jax_parse_string
-from tpupt_torch.scene.device import (ALT_FIELDS, ALT_STATICS,
+from tpupt_torch.scene.device import (ALT_FIELDS, ALT_STATICS, DT_WIDTH,
                                       TWO_LEVEL_FIELDS, DeviceScene,
                                       SceneStatics, from_numpy, upload)
 from tpupt_torch.scene.flatten import flatten
@@ -30,6 +30,10 @@ _TEXT_SCENES = {
     "triangles_and_spheres": lambda: testscenes.random_triangles_pbrt(60, 5),
     "quadric_kinds": testscenes.quadric_kinds_pbrt,
 }
+
+
+# the vertex-lerp motion tables of DeviceScene
+MOTION_FIELDS = ("prim_rows_dt", "tri_dp0", "tri_dp1", "tri_dp2")
 
 
 def _both(name, tmp_path):
@@ -66,6 +70,14 @@ def test_upload_tables_array_equal(name, strategy, tmp_path):
             # no subsurface rows: None there, a one-row dummy here
             assert tuple(ds_t.sss_pack.shape) == (1, 390)
             continue
+        if f in MOTION_FIELDS:
+            # a static scene: zeros there (a row a triangle for tri_dp*),
+            # one-row zero dummies here (prim_rows_dt 12 wide);
+            # tests/test_torch_motion.py holds a motion scene's tables
+            t = getattr(ds_t, f).numpy()
+            assert t.shape[0] == 1 and not t.any() and \
+                not np.asarray(getattr(ds_j, f)).any(), f
+            continue
         _assert_same_bits(f, getattr(ds_j, f), getattr(ds_t, f).numpy())
     for f in SceneStatics._fields:
         if f in ALT_STATICS:   # the port's own; the JAX Renderer keeps them
@@ -94,6 +106,9 @@ def test_from_numpy_carries_tables_across(tmp_path):
         if f in ALT_FIELDS or f == "sss_pack":
             # no tree, no subsurface rows in these tables: one-row dummies
             assert t.shape[0] == 1 and f not in fields, f
+        elif f == "prim_rows_dt":  # padded from 9 to DT_WIDTH columns
+            _assert_same_bits(f, fields[f], t.numpy()[:, :9])
+            assert t.shape[1] == DT_WIDTH and not t[:, 9:].any()
         elif f not in TWO_LEVEL_FIELDS:  # rebuilt in this package's layout
             _assert_same_bits(f, fields[f], t.numpy())
     assert st_t.n_spheres == 7 and st_t.max_leaf == st_j.max_leaf
@@ -102,8 +117,8 @@ def test_from_numpy_carries_tables_across(tmp_path):
 def test_from_numpy_refuses_unported_statics(tmp_path):
     sj, _ = _both("random_triangles", tmp_path)
     fields, statics = testscenes.tables_as_numpy(*jax_upload(sj))
-    statics["has_motion"] = True
-    with pytest.raises(NotImplementedError, match="has_motion"):
+    statics["n_channels"] = 60
+    with pytest.raises(NotImplementedError, match="n_channels"):
         from_numpy(fields, statics, device="cpu")
 
 
@@ -120,10 +135,9 @@ def test_cuda_device_without_card_raises(tmp_path):
 _UNPORTED = {
     "medium": ('MakeNamedMedium "fog" "string type" "homogeneous"',
                "flatten", "Media and volpath"),
-    "realistic": ("", "flatten", "Cameras and motion"),
-    "motion": ("ActiveTransform EndTime\nTranslate 0 0 1\nActiveTransform All",
-               "upload", "Cameras and motion"),
     "integrator": ("", "renderer", "Other integrators"),
+    "volpath": ("", "renderer", "Media and volpath"),
+    "mesh": ("", "training step on two devices", "Multi-GPU"),
 }
 
 # features the port refused until they were ported: (scene lines, header
@@ -135,6 +149,9 @@ _PORTED = {
     "fourier": ('Material "fourier"', ""),
     "subsurface": ('Material "subsurface"', ""),
     "sampler": ("", 'Sampler "sobol"'),
+    "realistic": ("", ""),
+    "motion": ("ActiveTransform EndTime\nTranslate 0.2 0 0\n"
+               "ActiveTransform All", ""),
 }
 
 
@@ -157,14 +174,13 @@ def test_unported_features_raise_not_implemented(feature):
     """Each feature the port does not render yet raises where it is met,
     naming the ROADMAP.md queue 1 item that will bring it."""
     from tpupt_torch.integrators.path import Renderer
+    from tpupt_torch.parallel.mesh import train_step_fn
 
     lines, where, words = _UNPORTED[feature]
-    camera = ('Camera "realistic"' if feature == "realistic"
-              else 'Camera "perspective" "float fov" [45]')
     head = {"integrator": 'Integrator "bdpt"',
-            "sampler": 'Sampler "sobol"'}.get(feature, "")
+            "volpath": 'Integrator "volpath"'}.get(feature, "")
     txt = f"""
-{camera}
+Camera "perspective" "float fov" [45]
 Film "image" "integer xresolution" [8] "integer yresolution" [8]
 {head}
 WorldBegin
@@ -181,10 +197,11 @@ WorldEnd
         return
     sc = flatten(parse_string(txt))
     with refusal:
-        if where == "upload":
-            upload(sc, device="cpu")
-        else:
+        if where == "renderer":
             Renderer(sc, device="cpu")
+        else:
+            train_step_fn(sc, ["cpu", "cpu"], np.zeros((8, 8, 3)),
+                          device="cpu")
 
 
 def test_failed_native_build_raises(monkeypatch, tmp_path):
@@ -202,16 +219,21 @@ def test_failed_native_build_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("feature", list(_PORTED))
-def test_formerly_unported_features_render(feature):
+def test_formerly_unported_features_render(feature, tmp_path):
     """The scene lines of each feature the port refused before it was
-    ported (the Disney, mix, hair, Fourier and subsurface materials and the
-    sobol sampler) flatten, upload and render on the CPU, with finite
-    pixels, under a distant light."""
+    ported (the Disney, mix, hair, Fourier and subsurface materials, the
+    sobol sampler, the realistic camera and motion blur) flatten, upload
+    and render on the CPU, with finite pixels, under a distant light."""
     from tpupt_torch.integrators.path import Renderer
 
     lines, head = _PORTED[feature]
+    camera = 'Camera "perspective" "float fov" [45]'
+    if feature == "realistic":
+        lens = testscenes.write_lens_file(str(tmp_path / "lens.dat"))
+        camera = (f'Camera "realistic" "string lensfile" ["{lens}"] '
+                  '"float focusdistance" [3]')
     txt = f"""
-Camera "perspective" "float fov" [45]
+{camera}
 Film "image" "integer xresolution" [8] "integer yresolution" [8]
 {head}
 WorldBegin
@@ -230,5 +252,9 @@ WorldEnd
     assert img.shape == (8, 8, 3) and np.isfinite(img).all()
     if feature == "sampler":
         assert r.sampler.name == "sobol" and img.mean() > 0
+    elif feature == "realistic":
+        assert sc.camera.lens_data.shape == (6, 4) and r.pupil is not None
+    elif feature == "motion":
+        assert st.has_motion and not st.cam_animated
     else:
         assert st.mat_features

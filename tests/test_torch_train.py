@@ -3,7 +3,10 @@ the JAX package's, on the same tables and sampler: `Renderer.value_and_grad`
 against `jax.value_and_grad` of the JAX package's film step, and one step
 of `parallel.mesh.train_step_fn` against its `train_step_fn` on a
 one-device CPU mesh. The JAX side runs eagerly, as in
-test_torch_gradients.py (whose helpers and tolerances this file shares):
+test_torch_gradients.py (whose helpers and tolerances this file shares;
+the textured scene's and the materials museum's cases are in
+test_torch_train_appearance.py, test_torch_train_appearance_step.py and
+test_torch_train_materials.py):
 the film-level gradients differ from `jax.grad`'s by at most 3.5e-6 of the
 largest absolute gradient of each table, the training step's update,
 compared as (p - p_new) / lr, by at most 4.2e-6; both are held to 1e-4."""
@@ -32,11 +35,17 @@ from test_torch_gradients import (APPEARANCE, BENCH, CORE, GRAD_TOL,
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("loss", ["sum", "weighted", "appearance",
-                                  "materials"])
+@pytest.mark.parametrize("loss", ["sum", "weighted"])
 def test_film_gradients_match_jax(loss, tmp_path, monkeypatch):
     """`Renderer.value_and_grad` at 1 spp against `jax.value_and_grad` of
-    the same loss of the JAX package's film step. "sum": the bench's loss,
+    the same loss of the JAX package's film step (`film_gradients_match_jax`
+    says which); the "appearance" and "materials" cases are in
+    test_torch_train_appearance.py and test_torch_train_materials.py."""
+    film_gradients_match_jax(loss, tmp_path, monkeypatch)
+
+
+def film_gradients_match_jax(loss, tmp_path, monkeypatch):
+    """The film-level comparison of one loss. "sum": the bench's loss,
     sum(film.rgb), with respect to its four tables, on a 16x16 museum (the
     camera matrices' gradient there is carried by lanes of radiance about
     1e-14, grazing samples of its area light where a last-bit difference
@@ -48,7 +57,7 @@ def test_film_gradients_match_jax(loss, tmp_path, monkeypatch):
     camera matrices (its Kd and Ks are all textures). "materials":
     sum(film.rgb) on test_torch_gradients' small materials museum with
     respect to the bench's four tables (mat_kd on the rows where the JAX
-    package's is not NaN, test_torch_gradients.
+    package's is not NaN, test_torch_gradients_materials.
     test_hair_lobes_of_other_lanes_make_the_jax_kd_gradient_nan). The film
     is linear in the emitters, light_L and env_map jointly (the pdfs, the
     env map's sampling tables and the light grid are upload-time
@@ -110,16 +119,6 @@ def test_train_step_matches_jax_and_lowers_the_loss(monkeypatch):
     loss and same updated tables; then three steps of the port lower the
     loss."""
     _train_step_against_jax("two_materials", monkeypatch, None)
-
-
-def test_train_step_with_the_appearance_tables_matches_jax(monkeypatch,
-                                                           tmp_path):
-    """The same on test_torch_gradients' textured, environment-lit scene
-    toward its image with the environment map halved: every table, the
-    texture atlas, the environment map and the camera matrices among them,
-    is updated as the JAX package updates it, and three steps of light_L,
-    the atlas and the map lower the loss."""
-    _train_step_against_jax("appearance", monkeypatch, tmp_path)
 
 
 def _train_step_against_jax(scene, monkeypatch, tmp_path):

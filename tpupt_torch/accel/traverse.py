@@ -74,6 +74,17 @@ def _xform_rows(prow, o, d):
     return o_obj, d_obj
 
 
+def _motion_time(st, time, n, like):
+    """Normalised shutter time in [0,1] of each ray for the vertex lerp, or
+    None for a static scene (no delta is then read). A motion scene given no
+    time takes mid-shutter, 0.5, for every ray."""
+    if not st.has_motion:
+        return None
+    if time is None:
+        return like.new_full((n,), 0.5)
+    return time
+
+
 def _interior_step(row, mrow, is_int, o, inv_d, t_cur, stack, sp):
     """8 slab tests of the node rows `row` (N,64) with metas `mrow` (N,8) for
     the lanes `is_int`; children that pass are ordered by slab-entry distance
@@ -109,12 +120,14 @@ def _interior_step(row, mrow, is_int, o, inv_d, t_cur, stack, sp):
 
 
 def _leaf_step(prim_rows, prim_ints, st, is_leaf, l_first, l_count, o, d,
-               perm, rec, touched=None, max_leaf: int = None):
+               perm, rec, touched=None, max_leaf: int = None, dt=None):
     """Test the prim rows l_first .. l_first + l_count of the lanes `is_leaf`
     against their rays. `rec` = [t_cur, gid, ridx, b1, b2, tests] is
     replaced entry by entry (out of place) and returned. The loop runs to
     the wide BVH's `st.max_leaf`, or, for trees with fat leaves (kd-trees),
-    to the largest leaf some lane is in, at most `max_leaf`."""
+    to the largest leaf some lane is in, at most `max_leaf`. `dt` =
+    (prim_rows_dt, time (N,)) lerps each triangle's vertices to v + time *
+    dv before its test (a motion scene)."""
     t_cur, gid, ridx, b1, b2, tests = rec
     n_rows = prim_rows.shape[0]
     if max_leaf is None:
@@ -131,8 +144,14 @@ def _leaf_step(prim_rows, prim_ints, st, is_leaf, l_first, l_count, o, d,
         tests = tests + valid.to(torch.int32)
         p_gid = pints[:, 0]
         p_is_tri = pints[:, 1] == 1
-        h_t, tt, _, tb1, tb2 = intersect_triangle(
-            o, perm, prow[:, 0:3], prow[:, 3:6], prow[:, 6:9], t_cur)
+        v0, v1, v2 = prow[:, 0:3], prow[:, 3:6], prow[:, 6:9]
+        if dt is not None:
+            drow = dt[0][idx]
+            tm = dt[1][:, None]
+            v0 = v0 + tm * drow[:, 0:3]
+            v1 = v1 + tm * drow[:, 3:6]
+            v2 = v2 + tm * drow[:, 6:9]
+        h_t, tt, _, tb1, tb2 = intersect_triangle(o, perm, v0, v1, v2, t_cur)
         win = valid & p_is_tri & h_t & (tt > 1e-6) & (tt < t_cur)
         t_cur = torch.where(win, tt, t_cur)
         gid = torch.where(win, p_gid, gid)
@@ -167,16 +186,20 @@ def _deepest(sp) -> int:
 
 @torch.no_grad()
 def intersect_wide(ds: DeviceScene, st: SceneStatics, o, d, tmax,
-                   any_hit: bool = False, touched=None):
+                   any_hit: bool = False, touched=None, time=None):
     """Closest hit (or, with any_hit, the first occluder found) of each ray:
     one 256-byte node-row gather per step and one 128-byte prim-row gather
     per primitive test (see bvh.collapse_to_wide / device.pack_prim_rows for
     the layouts). Children are ordered by slab-entry distance with an
     8-element sorting network and pushed far-to-near. Lanes with tmax == 0
     never enter the loop. `touched` = (node mask (Nw,), prim mask (P,)) bool
-    tensors, when given, get True at every row some ray read. Returns (Hit,
-    TraversalStats)."""
+    tensors, when given, get True at every row some ray read. In a motion
+    scene each triangle is lerped to the ray's `time` (N,) in [0,1] (default
+    mid-shutter) before its test: the nodes bound the shutter's union, so
+    the walk stays conservative. Returns (Hit, TraversalStats)."""
     n = o.shape[0]
+    tm = _motion_time(st, time, n, o)
+    dt = None if tm is None else (ds.prim_rows_dt, tm)
     dev = o.device
     i32 = torch.int32
     perm = ray_permutation(d)
@@ -217,7 +240,7 @@ def intersect_wide(ds: DeviceScene, st: SceneStatics, o, d, tmax,
         v = torch.where(is_leaf, -raw - 1, 0)
         rec = _leaf_step(ds.prim_rows, prim_ints, st, is_leaf, (v >> 6).long(),
                          v & 63, o, d, perm, rec,
-                         None if touched is None else touched[1])
+                         None if touched is None else touched[1], dt=dt)
         if any_hit:
             sp = torch.where(rec[1] >= 0, 0, sp)
 
@@ -553,17 +576,20 @@ def quadric_hit_point(prim_rows, st, o, d, t, ridx):
     return o_obj + t[:, None] * d_obj
 
 
-def intersect_p(ds: DeviceScene, st: SceneStatics, o, d, tmax):
+def intersect_p(ds: DeviceScene, st: SceneStatics, o, d, tmax, time=None):
     """Shadow-ray occlusion test (BVHAccel::IntersectP, bvh.cpp:398)."""
-    hit, stats = intersect_wide(ds, st, o, d, tmax, any_hit=True)
+    hit, stats = intersect_wide(ds, st, o, d, tmax, any_hit=True, time=time)
     return hit.valid, stats
 
 
 @torch.no_grad()
-def intersect_brute(ds: DeviceScene, st: SceneStatics, o, d, tmax):
-    """O(N*P) ground-truth intersector for validation (tests only)."""
+def intersect_brute(ds: DeviceScene, st: SceneStatics, o, d, tmax, time=None):
+    """O(N*P) ground-truth intersector for validation (tests only); in a
+    motion scene the triangles are lerped to each ray's `time` as in
+    `intersect_wide`."""
     n = o.shape[0]
     dev = o.device
+    tm = _motion_time(st, time, n, o)
     perm = ray_permutation(d)
     t_cur = tmax.to(torch.float32).clone()
     prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -571,8 +597,12 @@ def intersect_brute(ds: DeviceScene, st: SceneStatics, o, d, tmax):
     b2 = torch.zeros(n, device=dev)
     p_obj = torch.zeros((n, 3), device=dev)
     for tid in range(st.n_tris):
-        h, tt, _, tb1, tb2 = intersect_triangle(
-            o, perm, ds.tri_p0[tid], ds.tri_p1[tid], ds.tri_p2[tid], t_cur)
+        v0, v1, v2 = ds.tri_p0[tid], ds.tri_p1[tid], ds.tri_p2[tid]
+        if tm is not None:
+            v0 = v0 + tm[:, None] * ds.tri_dp0[tid]
+            v1 = v1 + tm[:, None] * ds.tri_dp1[tid]
+            v2 = v2 + tm[:, None] * ds.tri_dp2[tid]
+        h, tt, _, tb1, tb2 = intersect_triangle(o, perm, v0, v1, v2, t_cur)
         win = h & (tt > 1e-6) & (tt < t_cur)
         t_cur = torch.where(win, tt, t_cur)
         prim = torch.where(win, tid, prim)

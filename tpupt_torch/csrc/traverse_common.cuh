@@ -276,10 +276,17 @@ struct HitRec {
 
 // One leaf: `count` packed 128-byte prim rows from row `first` of
 // `prim_rows` (4 float4 of a triangle row are read, 7 of a quadric row).
-template <bool HAS_SPHERES, bool WITH_STATS>
+// With HAS_MOTION a triangle row's 48-byte delta row of `prim_dt` (three
+// float4 in the layout of the row's first three: dp0.xyz dp1.x | dp1.yz
+// dp2.xy | dp2.z, pad) is read too and its vertices are lerped to v + tm * dv
+// at the ray's shutter time `tm` before the test.
+template <bool HAS_SPHERES, bool WITH_STATS, bool HAS_MOTION = false>
 __device__ __forceinline__ void leaf_step(const float4* __restrict__ prim_rows,
                                           int n_rows, int first, int count,
-                                          const RayConst& r, HitRec& h) {
+                                          const RayConst& r, HitRec& h,
+                                          const float4* __restrict__ prim_dt =
+                                              nullptr,
+                                          float tm = 0.0f) {
   for (int k = 0; k < count; k++) {
     int idx = min(first + k, n_rows - 1);
     const float4* prow = prim_rows + (size_t)idx * 8;
@@ -289,6 +296,15 @@ __device__ __forceinline__ void leaf_step(const float4* __restrict__ prim_rows,
     bool p_is_tri = __float_as_int(p4.y) == 1;
     float4 q0 = __ldg(prow + 0), q1 = __ldg(prow + 1), q2 = __ldg(prow + 2);
     if (p_is_tri) {
+      if (HAS_MOTION) {
+        const float4* drow = prim_dt + (size_t)idx * 3;
+        float4 d0 = __ldg(drow + 0), d1 = __ldg(drow + 1), d2 = __ldg(drow + 2);
+        q0.x = q0.x + tm * d0.x; q0.y = q0.y + tm * d0.y;
+        q0.z = q0.z + tm * d0.z; q0.w = q0.w + tm * d0.w;
+        q1.x = q1.x + tm * d1.x; q1.y = q1.y + tm * d1.y;
+        q1.z = q1.z + tm * d1.z; q1.w = q1.w + tm * d1.w;
+        q2.x = q2.x + tm * d2.x;
+      }
       float tt, tb1, tb2;
       bool hit = tri_test(r, q0, q1, q2, h.t, &tt, &tb1, &tb2);
       if (hit && tt > 1e-6f && tt < h.t) {

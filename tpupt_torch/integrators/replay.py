@@ -16,7 +16,8 @@ other field of a shadow ray's hit. The counters are not kept; a replayed call
 returns zeros for them.
 
 The replay is right only if pass 2 traces the very rays pass 1 traced. Each
-call keeps a digest of its rays' bits, and the replay compares the digest of
+call keeps a digest of its rays' bits (origin, direction, tmax and, in a
+motion scene, the shutter time at which its triangles were lerped), and the replay compares the digest of
 the rays it is handed with it; `Replay.finish` raises if any differed or if
 the calls do not pair up one for one.
 """
@@ -28,11 +29,12 @@ import torch
 from tpupt_torch.accel.traverse import Hit, TraversalStats
 
 
-def ray_digest(o, d, tmax):
-    """Sum of the rays' float32 bit patterns as int64: one number a call,
-    which any single changed bit changes (the tests compare the bits
-    themselves)."""
-    return sum(x.view(torch.int32).sum(dtype=torch.int64) for x in (o, d, tmax))
+def ray_digest(o, d, tmax, *time):
+    """Sum of the rays' float32 bit patterns as int64 (their shutter times'
+    too, where the traversal is handed them): one number a call, which any
+    single changed bit changes (the tests compare the bits themselves)."""
+    return sum(x.view(torch.int32).sum(dtype=torch.int64)
+               for x in (o, d, tmax, *time))
 
 
 def _no_grad_in(o, d, tmax):
@@ -48,12 +50,14 @@ class HitRecorder:
         self.isect = isect
         self.calls = []   # (any_hit, Hit or valid, digest of the rays)
 
-    def record(self, ds, st, o, d, tmax, any_hit=False, with_stats=True):
+    def record(self, ds, st, o, d, tmax, any_hit=False, with_stats=True,
+               **kw):
         _no_grad_in(o, d, tmax)
         hit, stats = self.isect(ds, st, o, d, tmax, any_hit=any_hit,
-                                with_stats=with_stats)
+                                with_stats=with_stats, **kw)
         kept = hit.valid if any_hit else Hit(*(x.detach() for x in hit))
-        self.calls.append((any_hit, kept, ray_digest(o, d, tmax)))
+        time = () if kw.get("time") is None else (kw["time"],)
+        self.calls.append((any_hit, kept, ray_digest(o, d, tmax, *time)))
         return hit, stats
 
     def replay(self) -> "Replay":
@@ -68,7 +72,8 @@ class Replay:
         self.next = 0
         self.differs = None   # device bool: some call's rays differed
 
-    def __call__(self, ds, st, o, d, tmax, any_hit=False, with_stats=True):
+    def __call__(self, ds, st, o, d, tmax, any_hit=False, with_stats=True,
+                 time=None):
         _no_grad_in(o, d, tmax)
         if self.next >= len(self.calls):
             raise RuntimeError(f"replay asked for call {self.next + 1} of "
@@ -78,7 +83,8 @@ class Replay:
             raise RuntimeError(f"replay call {self.next}: any_hit={any_hit}, "
                                f"recorded any_hit={rec_any}")
         self.next += 1
-        differs = (ray_digest(o, d, tmax) != digest).any()
+        differs = (ray_digest(o, d, tmax, *(() if time is None else (time,)))
+                   != digest).any()
         self.differs = differs if self.differs is None else self.differs | differs
         n = o.shape[0]
         zero = torch.zeros((), dtype=torch.int32, device=o.device).expand(n)

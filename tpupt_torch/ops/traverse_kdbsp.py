@@ -62,10 +62,12 @@ def get_lib():
 
 
 def intersect_kdbsp_cuda(ds, st, o, d, tmax, any_hit: bool = False,
-                         with_stats: bool = True, lib=None):
+                         with_stats: bool = True, lib=None, time=None):
     """(Hit, TraversalStats) of rays o, d (N,3) float32, tmax (N,) float32,
     all contiguous and on one device, through the kd / RBSP / BSP tree in the
-    `alt_*` tables of `ds`.
+    `alt_*` tables of `ds`. `time` is ignored: in a motion scene the tree is
+    built over the shutter's union and tests the prims as they stand at
+    shutter open, as in the JAX package.
 
     CUDA tensors: launches the kernel on the current stream (no synchronise)
     or raises. CPU tensors: the plain `intersect_kdbsp`. with_stats=False

@@ -69,6 +69,10 @@ def intersect_treelets_cuda(ds, st, o, d, tmax, any_hit: bool = False,
     global launches
     if not st.two_level:
         raise ValueError("the scene was uploaded without two-level tables")
+    if st.has_motion:
+        raise ValueError("a motion scene goes through the wide-BVH kernel's "
+                         "motion instance (integrators.path.pick_traversal), "
+                         "not through the two-level tables")
     dev, n = check_rays(o, d, tmax)
     check_table("ds.top_nodes", ds.top_nodes, 64, torch.float32, dev)
     check_table("ds.tl_nodes", ds.tl_nodes, 64, torch.float32, dev)

@@ -9,7 +9,9 @@ tensors on the CPU it calls the plain PyTorch walker
 `accel.traverse.intersect_wide`, which is also what the kernel is held
 against on the card.
 
-`launches` counts kernel launches and nothing else.
+`launches` counts launches of the static instances and nothing else;
+`launches_motion` those of the motion instance, which a scene with
+`st.has_motion` launches (its triangles lerped to each ray's shutter time).
 """
 
 from __future__ import annotations
@@ -20,11 +22,13 @@ import threading
 import torch
 
 from tpupt_torch.accel import traverse as trav
+from tpupt_torch.scene.device import DT_WIDTH
 from tpupt_torch.utils.build import build_cuda, cuda_is_stale, cuda_library
 
 NAME = "traverse_wide"
 
-launches = 0  # kernel launches since import (or since a caller zeroed it)
+launches = 0  # static-instance launches since import (or since zeroed)
+launches_motion = 0  # motion-instance launches, likewise
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -42,7 +46,7 @@ def load(path: str):
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.tpupt_traverse_wide.argtypes = (
-        [vp, vp, ci, vp, vp, vp, ci] + [vp] * 9 + [ci, ci, ci, vp])
+        [vp, vp, ci, vp, vp, vp, ci] + [vp] * 9 + [ci, ci, ci, vp, vp, vp])
     lib.tpupt_traverse_wide.restype = ci
     return lib
 
@@ -115,20 +119,32 @@ def alloc_outputs(n, dev, with_stats, overflow_ints=None):
 
 
 def intersect_wide_cuda(ds, st, o, d, tmax, any_hit: bool = False,
-                        with_stats: bool = True, lib=None):
+                        with_stats: bool = True, lib=None, time=None):
     """(Hit, TraversalStats) of rays o, d (N,3) float32, tmax (N,) float32,
-    all contiguous and on one device, against the wide BVH of `ds`.
+    all contiguous and on one device, against the wide BVH of `ds`. In a
+    motion scene (`st.has_motion`) the triangles are lerped to each ray's
+    shutter `time` (N,) float32 in [0,1] (mid-shutter when None) through
+    `ds.prim_rows_dt`; a static scene ignores `time`.
 
     CUDA tensors: launches the kernel on the current stream (no synchronise)
-    or raises. CPU tensors: the plain `intersect_wide`. with_stats=False
-    leaves the counters out of the kernel and returns zeros for them.
-    `lib` overrides the loaded library (used to time other builds)."""
-    global launches
+    or raises; a motion scene launches the motion instance. CPU tensors: the
+    plain `intersect_wide`. with_stats=False leaves the counters out of the
+    kernel and returns zeros for them. `lib` overrides the loaded library
+    (used to time other builds)."""
+    global launches, launches_motion
     dev, n = check_rays(o, d, tmax)
     check_table("ds.wide_nodes", ds.wide_nodes, 64, torch.float32, dev)
     check_table("ds.prim_rows", ds.prim_rows, 32, torch.float32, dev)
+    motion = bool(st.has_motion)
+    if motion:
+        _check("ds.prim_rows_dt", ds.prim_rows_dt,
+               (ds.prim_rows.shape[0], DT_WIDTH), torch.float32, dev)
+        if time is None:
+            time = torch.full((n,), 0.5, device=dev)
+        _check("time", time, (n,), torch.float32, dev)
     if dev.type == "cpu":
-        return trav.intersect_wide(ds, st, o, d, tmax, any_hit=any_hit)
+        return trav.intersect_wide(ds, st, o, d, tmax, any_hit=any_hit,
+                                   time=time)
 
     lib = lib or get_lib()
     outs, deepest, stat_ptrs = alloc_outputs(n, dev, with_stats)
@@ -142,10 +158,15 @@ def intersect_wide_cuda(ds, st, o, d, tmax, any_hit: bool = False,
                 tmax.data_ptr(), n, t.data_ptr(), b1.data_ptr(),
                 b2.data_ptr(), gid.data_ptr(), ridx.data_ptr(), *stat_ptrs,
                 deepest.data_ptr(), int(any_hit), int(st.n_spheres > 0),
-                int(with_stats), stream)
+                int(with_stats),
+                ds.prim_rows_dt.data_ptr() if motion else None,
+                time.data_ptr() if motion else None, stream)
         if rc != 0:
             raise RuntimeError(f"traverse_wide kernel launch failed: CUDA error {rc}")
-        launches += 1
+        if motion:
+            launches_motion += 1
+        else:
+            launches += 1
     p_obj = trav.quadric_hit_point(ds.prim_rows, st, o, d, t, ridx)
     hit = trav.Hit(valid=gid >= 0, t=t, prim=gid, b1=b1, b2=b2, p_obj=p_obj)
     return hit, trav.TraversalStats(nodes, leaves, tests)

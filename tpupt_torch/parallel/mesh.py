@@ -43,7 +43,8 @@ def train_step_fn(scene, mesh, target, device="cuda", tables=None):
         if len(mesh) > 1:
             raise NotImplementedError(
                 f"a training step over {len(mesh)} devices needs the "
-                "torch.distributed all-reduce of ROADMAP.md queue 1, item 13")
+                "torch.distributed all-reduce that is not in the PyTorch "
+                "port yet (ROADMAP.md queue 1, item 13)")
         device = mesh[0] if mesh else device
     base = Renderer(scene, device=device, tables=tables)
     cfg = base.cfg
@@ -60,8 +61,8 @@ def train_step_fn(scene, mesh, target, device="cuda", tables=None):
         with torch.enable_grad():
             tables = (tri_shade_table(ds), sph_shade_table(ds))
             for b in range(base.n_batches):
-                _, L, _ = base._radiance(ds, sample_idx, b, tables=tables,
-                                         with_stats=False)
+                _, L, _ = base._radiance(ds, sample_idx, b,
+                                            tables=tables, with_stats=False)
                 pix = base._py_b[b] * cfg.xres + base._px_b[b]
                 tgt = target[pix.long()]
                 err = torch.where(base._valid_b[b][:, None], L - tgt, 0.0)

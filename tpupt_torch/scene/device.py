@@ -8,7 +8,16 @@ prim rows) and fields of features this package does not render yet are absent.
 A scene whose node and prim tables reach TWO_LEVEL_MIN_BYTES also gets the
 two-level tables of accel/treelets.py (same switch as the JAX package, so a
 scene is walked through the same tree by both), in that module's packed
-layout, not in the JAX package's padded one."""
+layout, not in the JAX package's padded one.
+
+Motion blur (vertex lerp at the ray's shutter time, AnimatedTransform
+parity): `prim_rows_dt` holds each prim row's triangle vertex deltas dp0 dp1
+dp2 in the rows' leaf order, padded to 12 floats a row (the JAX package keeps
+9) so that the wide-BVH kernel reads a row as three aligned float4 loads in
+the layout of the first three float4 of a prim row; quadric rows and static
+scenes have zeros (a static scene a one-row dummy). `tri_dp0..2` are the
+same deltas in global triangle order (the brute-force walker's). The
+animated camera's keys are `cam_q` (2,4) [w,x,y,z] and `cam_tr` (2,3)."""
 
 from __future__ import annotations
 
@@ -69,6 +78,11 @@ class DeviceScene(NamedTuple):
     # wide BVH (packed rows, the hot traversal path)
     wide_nodes: torch.Tensor   # (Nw, 64) f32, int32 meta bit-cast in 48-55
     prim_rows: torch.Tensor    # (P, 32) f32: tri verts or quadric w2o+params
+    # vertex-lerp motion blur: one-row dummies for a static scene
+    prim_rows_dt: torch.Tensor  # (P, 12) f32 leaf-order dp0 dp1 dp2 | pad
+    tri_dp0: torch.Tensor      # (T, 3) f32 global triangle order
+    tri_dp1: torch.Tensor
+    tri_dp2: torch.Tensor
     # two-level tables (accel/treelets.py); one-row dummies when single-level
     top_nodes: torch.Tensor    # (Ntop, 64) f32, leaves are treelet references
     tl_nodes: torch.Tensor     # (sum Nt, 64) f32, treelet-local ids
@@ -147,6 +161,8 @@ class DeviceScene(NamedTuple):
     # camera
     cam_to_world: torch.Tensor
     raster_to_camera: torch.Tensor
+    cam_q: torch.Tensor           # (2,4) animated camera's rotation keys
+    cam_tr: torch.Tensor          # (2,3) and translation keys
     # world bounds
     world_lo: torch.Tensor
     world_hi: torch.Tensor
@@ -225,9 +241,9 @@ class SceneStatics(NamedTuple):
 # statics that must be off in tables handed over from the JAX package: each
 # names a feature this package does not render yet, (off value, ROADMAP.md
 # queue 1 item)
-_UNPORTED_STATICS = dict(
-    n_media=(0, 11), has_motion=(False, 9), cam_animated=(False, 9),
-    n_channels=(3, 10))
+_UNPORTED_STATICS = dict(n_media=(0, 11), n_channels=(3, 10))
+# floats of a prim row's motion deltas on the device (the JAX package: 9)
+DT_WIDTH = 12
 
 
 def pack_prim_rows(scene: FlatScene, prim_ids: np.ndarray) -> np.ndarray:
@@ -275,6 +291,42 @@ def pack_prim_rows(scene: FlatScene, prim_ids: np.ndarray) -> np.ndarray:
     rows[:n, 18] = prim_ids.astype(np.float32)
     rows[:n, 19] = tri_mask.astype(np.float32)
     return rows
+
+
+def pack_prim_row_deltas(scene: FlatScene, prim_ids: np.ndarray) -> np.ndarray:
+    """Leaf-order vertex motion deltas matching pack_prim_rows: (P,
+    DT_WIDTH) with triangle dp0 dp1 dp2 in cols 0-8 (zeros for quadrics,
+    static prims and the pad), read beside prim_rows when st.has_motion so
+    that the wide traversal lerps vertices at the ray's shutter time."""
+    t = scene.triangles
+    prim_ids = np.asarray(prim_ids, np.int64)
+    n = len(prim_ids)
+    rows = np.zeros((max(n, 1), DT_WIDTH), np.float32)
+    tri_mask = prim_ids < t.count
+    tid = prim_ids[tri_mask]
+    if tid.size and t.dp0 is not None:
+        rows[tri_mask, 0:3] = t.dp0[tid]
+        rows[tri_mask, 3:6] = t.dp1[tid]
+        rows[tri_mask, 6:9] = t.dp2[tid]
+    return rows
+
+
+def camera_keys(cam):
+    """(cam_q (2,4), cam_tr (2,3)) float32 of an animated camera: the
+    rotation quaternions [w,x,y,z] (the second taken on the first's
+    hemisphere) and translations of its shutter-open and shutter-close
+    camera-to-world; identity keys when the camera does not move."""
+    if cam.cam_to_world_end is None:
+        return (np.array([[1, 0, 0, 0], [1, 0, 0, 0]], np.float32),
+                np.zeros((2, 3), np.float32))
+    from tpupt_torch.core.transforms import decompose
+
+    t0_, q0_, _ = decompose(np.asarray(cam.cam_to_world, np.float64))
+    t1_, q1_, _ = decompose(np.asarray(cam.cam_to_world_end, np.float64))
+    if np.dot(q0_, q1_) < 0.0:
+        q1_ = -q1_
+    return (np.stack([q0_, q1_]).astype(np.float32),
+            np.stack([t0_, t1_]).astype(np.float32))
 
 
 def _pad1(a: np.ndarray, fill=0):
@@ -391,10 +443,6 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
     treelet_budget=(tn, tp) overrides the treelet capacities (tests cut small
     scenes into many treelets with it)."""
     t, s, m, lt = scene.triangles, scene.spheres, scene.materials, scene.lights
-    if t.has_motion or scene.camera.cam_to_world_end is not None:
-        raise NotImplementedError(
-            "motion blur is not in the PyTorch port yet (ROADMAP.md queue 1, "
-            "item 9)")
     if scene.media:
         raise NotImplementedError(
             "media are not in the PyTorch port yet (ROADMAP.md queue 1, "
@@ -404,6 +452,10 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
     wlo, whi = scene.world_bounds()
     wide_nodes, _ = collapse_to_wide(bvh)
     prim_rows = pack_prim_rows(scene, bvh.prim_ids)
+    has_motion = t.has_motion
+    prim_rows_dt = (pack_prim_row_deltas(scene, bvh.prim_ids) if has_motion
+                    else np.zeros((1, DT_WIDTH), np.float32))
+    cam_q, cam_tr = camera_keys(scene.camera)
     if two_level is None:
         two_level = (wide_nodes.nbytes + prim_rows.nbytes
                      >= TWO_LEVEL_MIN_BYTES)
@@ -447,7 +499,9 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
                        else np.zeros(s.count, i32)),
         sph_q1=_pad1(s.q1 if s.q1 is not None else np.zeros(s.count, f32)),
         sph_q2=_pad1(s.q2 if s.q2 is not None else np.zeros(s.count, f32)),
-        wide_nodes=wide_nodes, prim_rows=prim_rows,
+        wide_nodes=wide_nodes, prim_rows=prim_rows, prim_rows_dt=prim_rows_dt,
+        **{f"tri_dp{k}": (_pad1(getattr(t, f"dp{k}")) if has_motion
+                          else np.zeros((1, 3), np.float32)) for k in range(3)},
         **_two_level_fields(tla), **_no_alt_fields(),
         mat_type=m.type, mat_kd=m.kd, mat_ks=m.ks, mat_kr=m.kr, mat_kt=m.kt,
         mat_roughness=m.roughness, mat_urough=m.urough, mat_vrough=m.vrough,
@@ -466,6 +520,7 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
         **texture_fields(scene.textures, m), **env_fields(scene),
         cam_to_world=scene.camera.cam_to_world,
         raster_to_camera=scene.camera.raster_to_camera,
+        cam_q=cam_q, cam_tr=cam_tr,
         world_lo=wlo, world_hi=whi,
         med_sigma_a=np.zeros((1, 3), f32), med_sigma_s=np.zeros((1, 3), f32),
         med_g=np.zeros(1, f32), med_majorant=np.ones(1, f32),
@@ -502,6 +557,8 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
         has_bssrdf_table=sss_pack is not None,
         spatial_lights=light_grid_cdf.shape[0] > 1,
         camera_medium=scene.camera_medium,
+        has_motion=bool(has_motion),
+        cam_animated=cam.cam_to_world_end is not None,
         shutter_open=float(cam.shutter_open),
         shutter_close=float(cam.shutter_close),
         two_level=bool(two_level),
@@ -695,8 +752,9 @@ def from_numpy(ds_fields: dict, st_fields: dict, device="cuda"):
     the carried `wide_nodes` and `prim_rows` with the carried capacities,
     which gives the same treelets in this package's layout. Its kd / RBSP /
     BSP tables (alt_flags ... alt_dirs, where its Renderer built them) are
-    carried as the node rows packed from them and the prim rows. A static that switches on a
-    feature this package lacks raises."""
+    carried as the node rows packed from them and the prim rows. Its motion
+    deltas `prim_rows_dt` (P,9) are padded to DT_WIDTH columns. A static that
+    switches on a feature this package lacks raises."""
     for name, (off, item) in _UNPORTED_STATICS.items():
         if st_fields.get(name, off) != off:
             raise NotImplementedError(
@@ -713,6 +771,9 @@ def from_numpy(ds_fields: dict, st_fields: dict, device="cuda"):
                                         ds_fields["mat_extra"]))
     if ds_fields.get("sss_pack") is None:
         ds_fields = {**ds_fields, "sss_pack": np.zeros((1, 390), np.float32)}
+    dt = np.asarray(ds_fields["prim_rows_dt"], np.float32)
+    ds_fields = {**ds_fields, "prim_rows_dt": np.pad(
+        dt, ((0, 0), (0, DT_WIDTH - dt.shape[1])))}
     tla = None
     if statics.two_level:
         tla = build_treelets(np.asarray(ds_fields["wide_nodes"]),

@@ -1,8 +1,8 @@
 """SceneDescription -> FlatScene: flat SoA tensors for the device.
 
-Features this package does not render yet (the realistic camera, media;
-motion blur raises at upload) raise NotImplementedError here, naming the
-ROADMAP.md item that will bring them; nothing is silently dropped.
+Features this package does not render yet (media) raise NotImplementedError
+here, naming the ROADMAP.md item that will bring them; nothing is silently
+dropped.
 
 This is the flat-table replacement for the reference's pointer-graph scene
 (GeometricPrimitive / TransformedPrimitive, core/primitive.h): instancing is
@@ -1189,7 +1189,25 @@ def _camera_config(desc: SceneDescription, film: FilmConfig,
         ctype = CAM_PERSPECTIVE
     lens_data = lens_z = None
     if ctype == CAM_REALISTIC:
-        raise _later(f"camera {name!r}", "9")
+        # lens stack + paraxial focusing (realistic.cpp:42-70)
+        from tpupt_torch.cameras.realistic import (element_z_positions,
+                                                   focus_thick_lens,
+                                                   load_lens_file)
+
+        lf = p.find_one_string("lensfile", "")
+        path = lf if os.path.isabs(lf) else os.path.join(scene_dir, lf)
+        if lf and os.path.isfile(path):
+            lens_data = load_lens_file(path)
+            ap_d = p.find_one_float("aperturediameter", 1.0) * 1e-3
+            stop = lens_data[:, 0] == 0
+            lens_data[stop, 3] = np.minimum(lens_data[stop, 3], ap_d / 2)
+            fd = p.find_one_float("focusdistance", 10.0)
+            lens_data = focus_thick_lens(lens_data, fd)
+            lens_z = element_z_positions(lens_data)
+        else:
+            warnings.warn(f"realistic camera: lensfile {lf!r} not found; "
+                          "using perspective")
+            ctype = CAM_PERSPECTIVE
     fov = p.find_one_float("fov", 90.0)
     aspect = p.find_one_float("frameaspectratio", film.xres / film.yres)
     sw = p.find_floats("screenwindow")

@@ -1,12 +1,25 @@
-"""Command-line renderer of the PyTorch/CUDA package:
+"""Command-line renderer of the PyTorch/CUDA package (counterpart of
+src/main/pbrt.cpp):
 
     python -m tpupt_torch.tools.render scene.pbrt [--spp N]
-        [--resolution WxH] [--cpu] [-o out.{exr,pfm,png}]
+        [--resolution WxH] [--quick] [--cpu] [-o out.{exr,pfm,png}]
+        [--quiet] [--stats] [--cropwindow X0 X1 Y0 Y1]
         [--accelerator bvh|kdtree|rbsp|bsp...] [--dumptree] [--writestats]
+        [--cat | --toply] [--profile DIR] [--logfile F] [--loglevel L]
 
 Parses and flattens the scene, uploads it, renders with the path integrator
 and writes the image. It runs on the CUDA device unless --cpu is given, and
 fails when there is none: it never drops to the CPU by itself.
+
+The flags mirror the reference CLI (pbrt.cpp:47-71) as the JAX package's
+does: --quick quarters the resolution (at least 16 pixels a side) and renders
+1 spp; --cropwindow renders only that part of the film (fractions); --quiet
+prints nothing but errors (warnings off); --stats prints the render's
+statistics (and turns the traversal counters on); --cat prints the parsed
+scene as canonical pbrt statements and exits, --toply too, with each inline
+trianglemesh written to a binary PLY sidecar in the current directory;
+--profile writes a torch.profiler trace of the render into DIR; --logfile /
+--loglevel route and filter the log lines (utils/logging.py).
 
 --accelerator overrides the scene's `Accelerator` line. --dumptree writes the
 kd / RBSP / BSP tree next to the image (GenericBSP operator<<, off by default
@@ -19,8 +32,12 @@ otherwise leave out."""
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import os
+import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -29,6 +46,7 @@ from tpupt_torch.integrators.path import Renderer
 from tpupt_torch.scene.flatten import flatten, with_resolution
 from tpupt_torch.scene.loader import parse_file
 from tpupt_torch.utils import imageio
+from tpupt_torch.utils import logging as tlog
 
 
 def write_image(path: str, img: np.ndarray) -> None:
@@ -71,8 +89,15 @@ def main(argv=None) -> int:
     ap.add_argument("--outfile", "-o", default=None)
     ap.add_argument("--spp", type=int, default=None)
     ap.add_argument("--resolution", default=None, help="WxH override")
+    ap.add_argument("--quick", action="store_true",
+                    help="1/4 resolution, 1 spp (pbrt --quick)")
     ap.add_argument("--cpu", action="store_true",
                     help="run the plain PyTorch path on the CPU")
+    ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--stats", action="store_true",
+                    help="print render statistics (pbrt PrintStats)")
+    ap.add_argument("--cropwindow", type=float, nargs=4, default=None,
+                    metavar=("X0", "X1", "Y0", "Y1"))
     ap.add_argument("--accelerator", default=None,
                     help="override the scene accelerator (bvh/kdtree/...)")
     ap.add_argument("--dumptree", action="store_true",
@@ -80,21 +105,68 @@ def main(argv=None) -> int:
     ap.add_argument("--writestats", action="store_true",
                     help="write per-pixel traversal counters and the tree's "
                          "node-type depth histograms")
+    ap.add_argument("--cat", action="store_true",
+                    help="print the parsed scene as canonical pbrt "
+                         "statements and exit (pbrt --cat)")
+    ap.add_argument("--toply", action="store_true",
+                    help="like --cat, with inline trianglemeshes written to "
+                         "binary PLY sidecars (pbrt --toply)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the render to DIR")
+    ap.add_argument("--logfile", default=None,
+                    help="append the log lines to a file")
+    ap.add_argument("--loglevel", default="info",
+                    choices=["debug", "info", "warning", "error"])
     args = ap.parse_args(argv)
 
-    scene_dir = os.path.dirname(os.path.abspath(args.scene))
-    scene = flatten(parse_file(args.scene), scene_dir)
+    tlog.set_level(args.loglevel)
+    if args.logfile:
+        tlog.set_logfile(args.logfile)
+    if args.quiet:
+        tlog.set_level("error")
+        warnings.simplefilter("ignore")
+
+    t0 = time.time()
+    desc = parse_file(args.scene)
+    if args.cat or args.toply:
+        from tpupt_torch.tools.catscene import cat_scene
+
+        # PLY sidecars go to the current directory, like the reference's,
+        # never into the scene's own directory
+        out_dir = os.getcwd()
+        n_ply = cat_scene(desc, sys.stdout, to_ply=args.toply,
+                          ply_dir=out_dir)
+        if args.toply and not args.quiet:
+            print(f"# wrote {n_ply} PLY sidecars to {out_dir}",
+                  file=sys.stderr)
+        return 0
+    scene = flatten(desc, os.path.dirname(os.path.abspath(args.scene)))
     if args.accelerator:
         scene.accelerator_name = args.accelerator
     if args.resolution:
         w, h = (int(v) for v in args.resolution.lower().split("x"))
         scene = with_resolution(scene, w, h)
+    if args.quick:
+        scene = with_resolution(scene, max(scene.film.xres // 4, 16),
+                                max(scene.film.yres // 4, 16))
+        scene.sampler.spp = 1
+    if args.cropwindow:
+        scene = dataclasses.replace(
+            scene, film=dataclasses.replace(scene.film,
+                                            crop=tuple(args.cropwindow)))
+    t_parse = time.time() - t0
+    tlog.info(f"parsed and flattened in {t_parse:.2f}s: "
+              f"{scene.triangles.count} triangles, {scene.spheres.count} "
+              f"quadrics, {scene.lights.count} lights")
     t0 = time.time()
     renderer = Renderer(scene, device="cpu" if args.cpu else "cuda",
-                        collect_stats=args.writestats)
+                        collect_stats=args.stats or args.writestats)
     t1 = time.time()
-    film = renderer.render(spp=args.spp)
-    img = renderer.image(film)
+    spp = args.spp or scene.sampler.spp
+    with (tlog.profile_to(args.profile) if args.profile
+          else contextlib.nullcontext()):
+        film = renderer.render(spp=spp, verbose=not args.quiet)
+        img = renderer.image(film)
     t2 = time.time()
     out = args.outfile or os.path.splitext(
         os.path.basename(scene.film.filename))[0] + ".png"
@@ -105,9 +177,19 @@ def main(argv=None) -> int:
                   f"{base}-tree.txt")
     if args.writestats:
         write_stats(base, renderer, film)
-    print(f"{out}: {img.shape[1]}x{img.shape[0]}, "
-          f"{args.spp or scene.sampler.spp} spp on {renderer.device}; "
-          f"scene {t1 - t0:.2f}s, render {t2 - t1:.2f}s")
+    if not args.quiet:
+        print(f"{out}: {img.shape[1]}x{img.shape[0]}, {spp} spp on "
+              f"{renderer.device}; scene {t1 - t0:.2f}s, render "
+              f"{t2 - t1:.2f}s")
+    if args.stats:
+        n_rays = int(renderer._valid_b.sum()) * spp
+        print("Statistics:")
+        print(f"  camera rays                     {n_rays}")
+        for k, v in renderer.aovs(film).items():
+            print(f"  {k:30s}  mean/pixel {float(v.mean()):10.2f}")
+        print(f"  Timings/Parse                   {t_parse:.2f} s")
+        print(f"  Timings/Buildtime               {t1 - t0:.2f} s")
+        print(f"  Timings/Rendertime              {t2 - t1:.2f} s")
     return 0
 
 

@@ -49,6 +49,42 @@ def random_triangles_pbrt(n_tris: int = 60, n_spheres: int = 0,
     return _wrap(p_str, i_str, sph)
 
 
+def moving_triangles_pbrt(n_tris: int = 60, n_groups: int = 4,
+                          n_spheres: int = 0, seed: int = 13) -> str:
+    """Random triangles in [-3,3]^3 in `n_groups` meshes, each moving over
+    the shutter by its own random translation and turn about a random axis
+    (an `ActiveTransform EndTime` key), so that vertex deltas differ vertex
+    by vertex; optionally with static spheres among them."""
+    rng = np.random.default_rng(seed)
+    body = ""
+    for _ in range(n_groups):
+        p_str, i_str = _triangle_soup(rng, n_tris // n_groups, 0.4)
+        tx, ty, tz = rng.normal(0, 0.4, 3)
+        ax = rng.normal(0, 1, 3)
+        ax /= np.linalg.norm(ax)
+        ang = rng.uniform(-25, 25)
+        body += (f'AttributeBegin\nActiveTransform EndTime\n'
+                 f'Translate {tx:.4f} {ty:.4f} {tz:.4f}\n'
+                 f'Rotate {ang:.3f} {ax[0]:.4f} {ax[1]:.4f} {ax[2]:.4f}\n'
+                 f'ActiveTransform All\n'
+                 f'Shape "trianglemesh" "point P" [{p_str}] '
+                 f'"integer indices" [{i_str}]\nAttributeEnd\n')
+    for _ in range(n_spheres):
+        x, y, z = rng.uniform(-3, 3, 3)
+        r = rng.uniform(0.2, 0.8)
+        body += (f'AttributeBegin\nTranslate {x:.4f} {y:.4f} {z:.4f}\n'
+                 f'Shape "sphere" "float radius" [{r:.4f}]\nAttributeEnd\n')
+    return f"""
+Camera "perspective" "float fov" [45]
+Film "image" "integer xresolution" [8] "integer yresolution" [8]
+Integrator "path"
+WorldBegin
+Material "matte" "rgb Kd" [0.5 0.5 0.5]
+{body}
+WorldEnd
+"""
+
+
 def quadric_kinds_pbrt(seed: int = 5, n_tris: int = 20) -> str:
     """A few triangles plus one of EVERY analytic quadric kind, each under a
     random rigid transform: exercises the unified quadric row test."""
@@ -413,6 +449,116 @@ def materials_museum(out_dir: str, n_hairs: int = 256, seed: int = 11,
     if n != 1 or 'Sampler "sobol"' not in text:
         raise ValueError("the museum's scene file changed: cannot dress it")
     dst = os.path.join(out_dir, "materials_museum.pbrt")
+    with open(dst, "w") as f:
+        f.write(text)
+    return dst
+
+
+# a lens of this package's own devising (pbrt's lens-file rows, in mm:
+# curvature radius, thickness toward the film, eta of the medium behind,
+# aperture diameter): two positive elements, an aperture stop (the radius-0
+# row; eta 0 reads as air), a negative and a positive element, about 37 mm
+# of focal length, so that on pbrt's 35 mm film diagonal it sees about 51
+# degrees, near the museum's perspective camera
+TEST_LENS_ROWS = ((21.0, 3.75, 1.65, 19.5),
+                  (90.0, 2.25, 1.0, 18.0),
+                  (0.0, 3.0, 0.0, 10.5),
+                  (-30.0, 1.5, 1.6, 15.0),
+                  (45.0, 4.5, 1.65, 16.5),
+                  (-27.0, 22.5, 1.0, 18.0))
+
+
+def write_lens_file(path: str, rows=TEST_LENS_ROWS) -> str:
+    """Write `rows` as a pbrt lens description file; returns `path`."""
+    with open(path, "w") as f:
+        f.write("# radius  thickness  eta  aperture-diameter (mm)\n")
+        for r in rows:
+            f.write("  ".join(f"{v:g}" for v in r) + "\n")
+    return path
+
+
+def motion_museum(out_dir: str, shift=(0.45, 0.0, 0.15), turn: float = 40.0,
+                  camera_shift: float = 0.6, **size) -> str:
+    """tools/genscene.py's museum (`size`: grid, seg, rings; the same
+    triangles) with its statues moving over the shutter: statue 0 turns by
+    `turn` degrees about its own vertical axis (so its vertex deltas differ
+    vertex by vertex), the others translate by `shift`, each through an
+    `ActiveTransform EndTime` key; and the camera animated, its shutter-close
+    LookAt moved `camera_shift` along x. Writes motion_museum.pbrt (and one
+    PLY a group) beside museum.pbrt and returns its path."""
+    import os
+    import re
+
+    from tpupt_torch.scene.plyio import read_ply, write_ply
+    from tpupt_torch.tools import genscene
+
+    path = genscene.museum(out_dir, **size)
+    grid = size.get("grid", 8)
+    mesh = read_ply(os.path.join(out_dir, "museum.ply"))
+    faces = mesh["indices"].reshape(grid * grid, -1, 3)
+    turning = faces[0].reshape(-1)
+    c = mesh["P"][np.unique(turning)].mean(0)
+    groups = [("statue_turning.ply",
+               f"  Translate {c[0]:.6f} {c[1]:.6f} {c[2]:.6f}\n"
+               f"  Rotate {turn:g} 0 0 1\n"
+               f"  Translate {-c[0]:.6f} {-c[1]:.6f} {-c[2]:.6f}\n",
+               faces[:1]),
+              ("statues_moving.ply",
+               "  Translate {:g} {:g} {:g}\n".format(*shift), faces[1:])]
+    lines = []
+    for name, key, fs in groups:
+        write_ply(os.path.join(out_dir, name), mesh["P"], fs.reshape(-1, 3),
+                  N=mesh.get("N"))
+        lines += ["AttributeBegin", "  ActiveTransform EndTime", key.rstrip(),
+                  "  ActiveTransform All",
+                  f'  Shape "plymesh" "string filename" ["{name}"]',
+                  "AttributeEnd"]
+    text = open(path).read()
+    look = re.search(r"^LookAt ([^\n]*)$", text, re.M)
+    v = [float(x) for x in look.group(1).split()]
+    moved = v[:]
+    moved[0] += camera_shift
+    moved[3] += camera_shift
+    text = text.replace(
+        look.group(0),
+        "ActiveTransform StartTime\nLookAt "
+        + " ".join(f"{x:g}" for x in v) + "\nActiveTransform EndTime\nLookAt "
+        + " ".join(f"{x:g}" for x in moved) + "\nActiveTransform All")
+    text, n = re.subn(r'Shape "plymesh" "string filename" \["museum.ply"\]',
+                      "\n".join(lines), text)
+    if n != 1:
+        raise ValueError("the museum's scene file changed: cannot move it")
+    dst = os.path.join(out_dir, "motion_museum.pbrt")
+    with open(dst, "w") as f:
+        f.write(text)
+    return dst
+
+
+def realistic_museum(out_dir: str, focus: float = None,
+                     aperture_mm: float = 10.0, **size) -> str:
+    """tools/genscene.py's museum (`size`: grid, seg, rings) seen through
+    the realistic camera with the lens of `write_lens_file` (written beside
+    it as test_lens.dat), focused at `focus` (default: the museum's centre)
+    with an aperture stop of `aperture_mm`. Writes realistic_museum.pbrt and
+    returns its path."""
+    import os
+
+    from tpupt_torch.tools import genscene
+
+    path = genscene.museum(out_dir, **size)
+    write_lens_file(os.path.join(out_dir, "test_lens.dat"))
+    grid = size.get("grid", 8)
+    if focus is None:
+        focus = grid * 3.0 * 1.1
+    text = open(path).read()
+    old = 'Camera "perspective" "float fov" [52]'
+    if old not in text:
+        raise ValueError("the museum's scene file changed: cannot refocus it")
+    text = text.replace(old, (
+        'Camera "realistic" "string lensfile" ["test_lens.dat"] '
+        f'"float aperturediameter" [{aperture_mm:g}] '
+        f'"float focusdistance" [{focus:g}]'))
+    dst = os.path.join(out_dir, "realistic_museum.pbrt")
     with open(dst, "w") as f:
         f.write(text)
     return dst
