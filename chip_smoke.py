@@ -22,7 +22,7 @@ which runs kernels `bin_rays` and `walk_pairs` and, for rays whose treelet
 list overflowed, `traverse_treelets`.
 The launch counts show that each render went through its kernels, and each
 render is compared with one made by the kernels' plain versions (on a
-256x256 crop in the middle of the image: the plain walkers take a second or
+128x128 crop in the middle of the image: the plain walkers take a second or
 more a traversal). K1, K2 and K3 are also held against their plain versions
 on batches of 98 % dead rays, of dead rays only, of one ray and of 131,073
 rays; at the main shape every kernel prints the wrapper call and the
@@ -37,14 +37,14 @@ the counters), and K4 also on the dead-heavy, all-dead, one-ray and
 1024x1024 (K1 and K3, 1 sample each), with the launch counts set to 0
 just before and read just after, each beside the same renderer's forward
 sample and against the same step through the plain version on the middle
-crop, and three `parallel.mesh.train_step_fn` steps on the small museum.
+crop, and two `parallel.mesh.train_step_fn` steps on the small museum.
 The `appearance` phase renders `tools/testscenes.py` `textured_museum` (the
 small museum with an image-mapped floor from a 2048x2048 PFM, a
 checkerboard wall, marble / wrinkled statues, an environment-mapped
 infinite light of 2048x1024 and a goniometric light) at 1024x1024 through
 K1, against the plain version on the crop, takes `value_and_grad` with
 respect to `mat_kd`, `light_L`, `tex_atlas` and `env_map` (the film is
-linear in the two emitter tables jointly) and three training steps toward
+linear in the two emitter tables jointly) and two training steps toward
 its image with the environment map halved.
 The `materials` phase renders `tools/testscenes.py` `materials_museum`
 (the small museum's statues in Disney, mix, Fourier, subsurface,
@@ -73,19 +73,34 @@ realistic camera (`testscenes.realistic_museum`: a six-row lens of the
 package's own with an aperture stop) against the plain walker on the crop,
 with the share of camera rays vignetted; and runs `tools/sweep.py` over
 `acc=bvh,kdtree` at 256x256, 1 spp, on the card.
+The `kernels` phase also builds `tools/testscenes.py` `fog_museum` (the
+small museum in a room fog, a 128^3 grid plume behind a null-material
+interface box, a tinted glass statue) and holds both entry points of K6,
+the grid-medium tracking kernel (`tr_grid`, `sample_distance_grid`),
+against their plain loops, bit for bit (`interacted`, t and the
+transmittance), on 262,144 lanes started in the plume and on the
+dead-heavy, all-dead, one-lane and 131,073-lane batches.
+The `media` phase renders `spectral_museum` (60-bin spectral transport,
+saturated rows under a blackbody light) through K1 and `fog_museum`
+(volpath) through K1 and K6 at 1024x1024, beside the static museum in the
+same phase, each against the plain versions on the crop; holds K6 against
+its plain loops and times it on every call of the fog museum's middle
+batch; and takes a 1-spp `value_and_grad` of each (the film linear in
+light_L).
 There is no fallback: without a CUDA device, without the `tpupt_torch`
 package beside it, with a kernel that does not build, launch or agree, or
 with any failed check, it exits with a code other than 0 and prints no
 result line.
 
 Output: one JSON object per phase (`env`, `kernels`, `main_path`,
-`gradients`, `appearance`, `materials`, `motion`), then the card's name and power
+`gradients`, `appearance`, `materials`, `motion`, `media`), then the card's name and power
 limit, the `{"kernels": [...]}` line, and last `{"ok": true, "device":
 {...}}`.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -105,11 +120,14 @@ from tpupt_torch.accel import kdbsp
 from tpupt_torch.accel import traverse as trav
 from tpupt_torch.cameras.perspective import generate_rays
 from tpupt_torch.cameras.realistic import realistic_rays
+from tpupt_torch.core import rng as rng_mod
 from tpupt_torch.core.sampling import cosine_sample_hemisphere
 from tpupt_torch.core.vecmath import offset_ray_origin
 from tpupt_torch.integrators.path import Renderer, shading_point
 from tpupt_torch.materials import bsdf as bx
 from tpupt_torch.native import get_lib as get_native_lib
+from tpupt_torch.media import media as mmod
+from tpupt_torch.ops import media_tracking as mtk
 from tpupt_torch.ops import traverse_kdbsp as tk
 from tpupt_torch.ops import traverse_requeue as tr
 from tpupt_torch.ops import traverse_treelets as tt
@@ -136,8 +154,8 @@ MUSEUM_1K = dict(grid=2, seg=16, rings=8)        # 1,028 triangles
 SPP_1M = 1
 SPP_65K = 1
 # the plain walkers render this crop of the image, the kernels too for the
-# comparison: 256x256 pixels in the middle, one batch a sample
-PLAIN_CROP = (0.375, 0.625, 0.375, 0.625)
+# comparison: 128x128 pixels in the middle, one batch a sample
+PLAIN_CROP = (0.4375, 0.5625, 0.4375, 0.5625)
 # the gradients phase: value_and_grad of bench.py's loss, sum(film.rgb), with
 # respect to the four tables it differentiates, 1 sample on the small museum
 # and 1 on the 1M one; the film is linear in light_L, so
@@ -153,15 +171,15 @@ SPP_GRAD_65K, SPP_GRAD_1M = 1, 1
 LINEARITY_RTOL = 1e-4
 GRAD_VS_PLAIN = 1e-5
 FILM_VS_RENDER_REL = 1e-6
-# three SGD steps of train_step_fn toward the small museum rendered with
+# two SGD steps of train_step_fn toward the small museum rendered with
 # every diffuse albedo halved
-TRAIN_STEPS, TRAIN_LR = 3, 0.5
+TRAIN_STEPS, TRAIN_LR = 2, 0.5
 # the appearance phase: tools/testscenes.py textured_museum at MUSEUM_65K's
 # size (a 2048x2048 floor texture, a 2048x1024 environment map with a sun
 # disc, a 256x128 goniometric map), SPP_APPEAR samples through K1;
 # value_and_grad of bench_loss with respect to APPEAR_PARAMS (the film is
 # linear in light_L and env_map jointly: sum(light_L * g) + sum(env_map * g)
-# equals the loss to LINEARITY_RTOL), and three training steps of the same
+# equals the loss to LINEARITY_RTOL), and two training steps of the same
 # tables toward the image rendered with env_map halved
 APPEAR_MAPS = dict(tex_res=2048, env_res=(2048, 1024), gonio_res=(256, 128))
 APPEAR_PARAMS = ("mat_kd", "light_L", "tex_atlas", "env_map")
@@ -183,15 +201,12 @@ NEW_SAMPLERS = ("sobol", "02sequence", "lowdiscrepancy", "maxmindist",
 SAMPLER_GRID = (64, 16, 64)
 # the motion phase: tools/testscenes.py motion_museum at MUSEUM_65K's size,
 # SPP_MOTION samples through K1's motion instance (a vertex launches it
-# twice: 192 launches in 2 spp), one fwd+bwd sample of value_and_grad with
+# twice: 96 launches a spp), one fwd+bwd sample of value_and_grad with
 # respect to GRAD_PARAMS (sum(light_L * g) within LINEARITY_RTOL of the
 # loss); realistic_museum (the small museum through the test lens, its
 # aperture stop REALISTIC_APERTURE_MM wide), SPP_REALISTIC samples through
 # K1's static instance; tools/sweep.py over SWEEP_SET at SWEEP_RES, 1 spp
-SPP_MOTION = 2
-# the motion phase compares with the plain walker on the middle 128x128
-# pixels (the plain walker lerps on every lane: 23 s for PLAIN_CROP)
-MOTION_CROP = (0.4375, 0.5625, 0.4375, 0.5625)
+SPP_MOTION = 1
 SPP_REALISTIC = 1
 REALISTIC_APERTURE_MM = 10.0
 SWEEP_SET, SWEEP_RES = "acc=bvh,kdtree", 256
@@ -199,6 +214,35 @@ SWEEP_SET, SWEEP_RES = "acc=bvh,kdtree", 256
 # 48-byte delta row (three float4) and a live ray's time; 18 float32
 # operations a triangle test more (three vertices lerped: 9 mul, 9 add)
 DELTA_ROW_BYTES, TIME_BYTES, OPS_PER_LERP = 48, 4, 18
+# the media phase: tools/testscenes.py spectral_museum (60-bin transport)
+# and fog_museum (volpath; a FOG_GRID_RES^3 grid plume) at MUSEUM_65K's
+# size, SPP_MEDIA samples each through K1 (and K6), against the plain
+# versions on PLAIN_CROP; one fwd+bwd sample each: the spectral museum with
+# respect to GRAD_PARAMS, the fog museum to MEDIA_PARAMS (K6 carries no
+# gradient through the ray, so the tables that move rays are left out)
+SPP_MEDIA = 1
+FOG_GRID_RES = 128
+MEDIA_PARAMS = ("mat_kd", "light_L")
+# K6 against its plain version: interacted equal on every lane, t and the
+# transmittance within K6_ULP_LIMIT ulps (0: to the bit)
+K6_ULP_LIMIT = 0
+# instructions of K6's source, counted by hand: a step of a lane's loop
+# (three PCG hashes, the uniform, a log, the update and test of t) and a
+# density lookup with its decision (the point, the world-to-medium product,
+# eight clamped texel reads, the trilinear weights; delta tracking adds a
+# second uniform)
+OPS_PER_TRACK_STEP = 61
+K6_OPS_PER_LOOKUP = {"tr_grid": 247, "sample_distance_grid": 287}
+# bytes a live lane reads (medium id, live byte, origin, direction, t_c,
+# key), a texel, and what a lane writes (the transmittance; interacted + t)
+LANE_IN_BYTES, TEXEL_BYTES = 37, 4
+K6_OUT_BYTES = {"tr_grid": 4, "sample_distance_grid": 5}
+K6_REPLACES = {
+    "tr_grid": "tpupt/media/media.py:330 (tr_lane's ratio-tracking loop, "
+               "XLA; no Pallas kernel)",
+    "sample_distance_grid": "tpupt/media/media.py:379 (sample_distance_"
+                            "lane's delta-tracking loop, XLA; no Pallas "
+                            "kernel)"}
 # kd-tree, restricted BSP with 3 / 7 / 13 directions, one tree with a
 # direction per node and one with kd nodes mixed in: (name, nbDirections)
 KD_TREES = [("kdtree", None), ("rbsp", 3), ("rbsp", 7), ("rbsp", 13),
@@ -237,7 +281,8 @@ SLEEP_CYCLES = 2_000_000
 
 # the kernel sources, one nvcc run each (and one more with -fmad=true)
 SOURCES = {"traverse_wide": tw, "traverse_treelets": tt,
-           "traverse_kdbsp": tk, "traverse_requeue": tr}
+           "traverse_kdbsp": tk, "traverse_requeue": tr,
+           "media_tracking": mtk}
 
 # every traversal kernel of the main path: wrapper module, wrapper, plain
 # version, the tables it reads (in the order of the plain version's
@@ -498,13 +543,14 @@ def launch_counts() -> dict:
     return {"traverse_wide": tw.launches,
             "traverse_wide_motion": tw.launches_motion,
             "traverse_treelets": tt.launches,
-            "traverse_kdbsp": tk.launches, **tr.launches}
+            "traverse_kdbsp": tk.launches, **tr.launches, **mtk.launches}
 
 
 def zero_launches() -> None:
     tw.launches = tw.launches_motion = tt.launches = tk.launches = 0
-    for k in tr.launches:
-        tr.launches[k] = 0
+    for counts in (tr.launches, mtk.launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def check_stack_depths() -> None:
@@ -554,15 +600,26 @@ def edge_cases(name, ds, st, o, d, tmax, seed):
          tmax[:cut].contiguous())]
 
 
-def drive(renderer, per_call: dict, spp, calls_per_vertex: int = 2):
+def warm_up(renderer):
+    """One batch of sample 0 outside any timed or counted run: every batch
+    of a render has its shape, so it warms what a whole sample would."""
+    with torch.no_grad():
+        renderer._step(renderer.new_film(), 0, 0)
+    torch.cuda.synchronize()
+
+
+def drive(renderer, per_call: dict, spp, calls_per_vertex: int = 2,
+          vertices: int = None):
     """Render `spp` samples through the entry point with the launch counts
     set to 0 just before and read just after; `per_call` says how often
     each kernel launches in one traversal call (every other kernel must not
     launch at all), `calls_per_vertex` how many traversal calls a path
-    vertex makes. Returns (film, ms per spp, launches of every kernel)."""
+    vertex makes, `vertices` how many loop iterations a batch runs (default
+    max_depth + 1). Returns (film, ms per spp, launches of every kernel)."""
     depth = renderer.scene.integrator.max_depth
-    calls = calls_per_vertex * (depth + 1) * renderer.n_batches * spp
-    renderer.render(spp=1)   # warm-up outside the counted run
+    calls = (calls_per_vertex * (vertices or depth + 1) * renderer.n_batches
+             * spp)
+    warm_up(renderer)
     torch.cuda.synchronize()
     zero_launches()
     t0 = time.time()
@@ -572,7 +629,7 @@ def drive(renderer, per_call: dict, spp, calls_per_vertex: int = 2):
     counts = launch_counts()
     check_stack_depths()
     for k, c in counts.items():
-        want = calls * per_call.get(k, 0)
+        want = round(calls * per_call.get(k, 0))
         if c != want:
             fail(f"render through {sorted(per_call)} launched {k} {c} times, "
                  f"expected {want}")
@@ -815,6 +872,38 @@ def main(argv) -> int:
         del ds2l, st2l, motion_cases
         motion_shape = motion_shape_timing(tables_m, half_m, "motion_museum")
         del tables_m, rays_m, half_m
+        # K6 on 262,144 lanes of the fog museum (its grid plume at full
+        # size) and the edge batches; the scene and its tables go on to the
+        # media phase
+        fdir = os.path.join(tmp, "fog")
+        t0 = time.time()
+        fog_path = testscenes.fog_museum(fdir, grid_res=FOG_GRID_RES,
+                                         **MUSEUM_65K)
+        t_fog_write = time.time() - t0
+        t0 = time.time()
+        sc_fog = flatten(parse_file(fog_path), fdir)
+        t_fog_flatten = time.time() - t0
+        t0 = time.time()
+        tables_fog = upload(sc_fog,
+                            light_strategy=sc_fog.integrator.light_strategy,
+                            device=dev)
+        torch.cuda.synchronize()
+        fog_host_s = {"write_scene": round(t_fog_write, 2),
+                      "parse_flatten": round(t_fog_flatten, 2),
+                      "bvh_upload": round(time.time() - t0, 2)}
+        if (not tables_fog[1].any_grid_media
+                or not tables_fog[1].has_med_interfaces
+                or tables_fog[1].n_media != 3 or tables_fog[1].two_level):
+            fail(f"the fog museum's tables are not what it asks for: "
+                 f"{tables_fog[1]}")
+        t0 = time.time()
+        lanes_fog = fog_lanes(sc_fog, *tables_fog, dev, 61)
+        check_k6(lanes_fog, checks, fmad_libs["media_tracking"])
+        half_fog = (lanes_fog[0],) + tuple(
+            x[N_CHECK_RAYS // 2:].contiguous() for x in lanes_fog[1:])
+        k6_shape = {kind: k6_timing(kind, half_fog) for kind in mtk.launches}
+        k6_checks_s = time.time() - t0
+        del lanes_fog, half_fog
         treelet_edges = [c for base in treelet_cases
                          for c in edge_cases(*base, seed=41)]
         check_cases("traverse_treelets", treelet_cases + treelet_edges,
@@ -844,6 +933,9 @@ def main(argv) -> int:
               "kd_checks_s": round(kd_checks_s, 1),
               "requeue_checks_s": round(requeue_checks_s, 1),
               "motion_museum_write_flatten_upload_s": round(motion_upload_s, 2),
+              "fog_museum_host_s": fog_host_s,
+              "k6_checks_s": round(k6_checks_s, 1),
+              "media_tracking_on_secondary_lanes": k6_shape,
               "traverse_wide_motion_at_main_shape": motion_shape,
               "launches_during_checks": launch_counts(),
               "checks": checks})
@@ -1069,7 +1161,7 @@ def main(argv) -> int:
           "kernels_at_main_shape_museum_65k": shape_kd})
 
     # ---- gradients: value_and_grad through K1 (small museum) and K3 (1M
-    # museum), each against its plain version on the crop; three training
+    # museum), each against its plain version on the crop; two training
     # steps on the small museum
     grads65 = fwd_bwd(sc65, tables65, "traverse_wide", SPP_GRAD_65K, dev)
     grads1m = fwd_bwd(scene, tables, "traverse_treelets", SPP_GRAD_1M, dev,
@@ -1090,6 +1182,11 @@ def main(argv) -> int:
     # realistic camera, the sweep
     mot = motion(dev, (sc65, tables65))
     emit({"phase": "motion", **mot})
+
+    # ---- media: spectral transport and the fog museum through K1 and K6
+    med = media(dev, (sc65, tables65), (sc_fog, tables_fog, fog_host_s),
+                with_profile)
+    emit({"phase": "media", **med})
 
     kernels = []
     # K1 at the shape where the main path launches it: the 63,558-triangle
@@ -1132,6 +1229,13 @@ def main(argv) -> int:
         kernels[-1]["materials_fwd_bwd_launches"] = (
             mats["gradients"]["launches"][kind])
         if kind == "traverse_wide":
+            sm, fm = med["spectral_museum"], med["fog_museum"]
+            kernels[-1]["media_launches"] = {
+                "spectral_museum": sm["launches"][kind],
+                "fog_museum": fm["launches"][kind]}
+            kernels[-1]["media_fwd_bwd_launches"] = {
+                "spectral_museum": sm["gradients"]["launches"][kind],
+                "fog_museum": fm["gradients"]["launches"][kind]}
             ms_ = motion_shape
             kernels[-1]["motion_launches"] = mot["launches"][
                 "traverse_wide_motion"]
@@ -1209,6 +1313,34 @@ def main(argv) -> int:
             "per": ("one launch" if kind == "bin_rays"
                     else "one driver call: pass 0 + pass 1, two launches"),
             "tolerance": "every output equal to the bit"})
+    fm = med["fog_museum"]
+    for kind in mtk.launches:
+        at = fm["k6_at_main_shape"][kind]
+        mean = at["mean_per_call"]
+        sec = k6_shape[kind]
+        kernels.append({
+            "name": kind, "route": "cuda",
+            "source": "tpupt_torch/csrc/media_tracking.cu",
+            "replaces": K6_REPLACES[kind], "launches": fm["launches"][kind],
+            "max_abs_err": max(
+                [c["max_abs_err"] for tag, c in checks.items()
+                 if tag.startswith(kind + "/") and "fmad" not in tag]
+                + [at["max_abs_err"]]),
+            "ms": mean["kernel_alone_ms"], "plain_ms": mean["plain_ms"],
+            "bound_ms": mean["bound_ms"],
+            "bound_by": at["bound_by_calls"].most_common(1)[0][0],
+            "library_ms": None,
+            "per": "mean over the calls of the fog museum's middle batch "
+                   "of sample 0 (ms: the kernel alone)",
+            "call_ms": mean["kernel_ms"], "calls_timed": at["calls"],
+            "lanes_per_launch": at["lanes"], "live_lanes": mean["live"],
+            "fwd_bwd_launches": fm["gradients"]["launches"][kind],
+            "on_all_live_secondary_lanes": {
+                k: sec[k] for k in ("kernel_ms", "kernel_alone_ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "live_lanes")},
+            "tolerance": f"interacted equal on every lane, t / transmittance "
+                         f"<= {K6_ULP_LIMIT} ulp"})
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     print(card_line, flush=True)
     emit({"kernels": kernels})
@@ -1225,7 +1357,7 @@ def appearance(dev, with_profile, untextured) -> dict:
     K1 with the launch counts set to 0 just before and read just after, held
     against the plain-version render on PLAIN_CROP; `value_and_grad` of
     `bench_loss` with respect to APPEAR_PARAMS over SPP_APPEAR samples (the
-    emitters' linearity, finite gradients, K1's launches); three training
+    emitters' linearity, finite gradients, K1's launches); two training
     steps toward the image with env_map halved. `with_profile` adds one
     textured sample's device launches and busy share beside one sample of
     `untextured` = (scene, tables), the plain museum, and beside one
@@ -1260,7 +1392,7 @@ def appearance(dev, with_profile, untextured) -> dict:
                               SPP_APPEAR, ("light_L", "env_map"),
                               LINEARITY_RTOL, "appearance")
 
-    # three training steps toward the image with env_map halved
+    # TRAIN_STEPS training steps toward the image with env_map halved
     target_r = Renderer(scene, device=dev, tables=(
         ds._replace(env_map=ds.env_map * 0.5), st))
     target = target_r.image(target_r.render(spp=1))
@@ -1313,14 +1445,15 @@ def appearance(dev, with_profile, untextured) -> dict:
 
 def emitter_grads(r, params, spp, emitters, rtol, tag,
                   calls_per_vertex: int = 2,
-                  kind: str = "traverse_wide") -> dict:
+                  kind: str = "traverse_wide", per_batch: dict = None) -> dict:
     """`value_and_grad` of `bench_loss` with respect to `params` over `spp`
     samples (one call a sample) with the launch counts set to 0 just before
     and read just after. Fails unless every gradient is finite and nonzero,
     sum over the `emitters` tables of table * gradient equals the loss to
     `rtol` (the film is linear in them jointly), and `kind` (K1's static
     or motion instance) launched `calls_per_vertex` times a vertex of every
-    batch and nothing else did."""
+    batch and nothing else did; `per_batch` (kernel -> launches a batch of a
+    sample) replaces that expectation where the loop is not path_li's."""
     torch.cuda.reset_peak_memory_stats()
     bytes_before = torch.cuda.memory_allocated()
     zero_launches()
@@ -1340,10 +1473,11 @@ def emitter_grads(r, params, spp, emitters, rtol, tag,
         values.append(v)
         linearity.append(lin)
     counts = launch_counts()
-    want = (calls_per_vertex * (r.scene.integrator.max_depth + 1)
-            * r.n_batches * spp)
+    if per_batch is None:
+        per_batch = {kind: calls_per_vertex
+                     * (r.scene.integrator.max_depth + 1)}
     for k, c in counts.items():
-        if c != (want if k == kind else 0):
+        if c != per_batch.get(k, 0) * r.n_batches * spp:
             fail(f"{tag} value_and_grad launched {k} {c} times")
     ms = sum(step_ms) / spp
     return {
@@ -1742,7 +1876,7 @@ def motion(dev, static_museum) -> dict:
     del r_static
     plain = against_plain_render(scene, tables, "traverse_wide_motion", dev,
                                  plain_isect=plain_traversal("traverse_wide"),
-                                 crop=MOTION_CROP)
+                                 crop=PLAIN_CROP)
     grad_line = emitter_grads(r, {k: getattr(ds, k) for k in GRAD_PARAMS}, 1,
                               ("light_L",), LINEARITY_RTOL, "motion",
                               kind="traverse_wide_motion")
@@ -1764,7 +1898,7 @@ def motion(dev, static_museum) -> dict:
     del film_r
     vig = vignetted_share(rr)
     plain_r = against_plain_render(sc_real, tables_r, "traverse_wide", dev,
-                                   crop=MOTION_CROP)
+                                   crop=PLAIN_CROP)
     lens = sc_real.camera.lens_data
     return {
         "scene": "tools/testscenes.py motion_museum", **MUSEUM_65K,
@@ -1817,7 +1951,7 @@ def fwd_bwd(scene, tables, kind, spp, dev, with_profile=False) -> dict:
     `profile_one_spp` of one more fwd+bwd sample."""
     renderer = Renderer(scene, device=dev, tables=tables)
     params = {k: getattr(renderer.ds, k) for k in GRAD_PARAMS}
-    renderer.render(spp=1)   # warm-up
+    warm_up(renderer)
     torch.cuda.synchronize()
     t0 = time.time()
     film_fwd = renderer.render(spp=1)
@@ -2585,6 +2719,435 @@ def requeue_shape_timing(tables, rays, fmad_lib, tag, k3_hits, var_libs):
             ds, st, o2, d2, tmax, any_hit=any_hit))
         out[mode] = res
     return out
+
+
+
+# ------------------------- K6: grid-medium tracking -------------------------
+
+def k6_live(mt, med):
+    """(medium index (N,) int64, the lanes K6 computes: grid media)."""
+    mi = med.clamp_min(0).long()
+    return mi, mt.is_grid[mi] & (med >= 0)
+
+
+def k6_call(kind, lanes, lib=None):
+    """Entry point `kind` of K6 through its wrapper on `lanes` = (mt, med,
+    o, d, t_c, keys): a tuple of its outputs."""
+    mt, med, o, d, t_c, keys = lanes
+    mi, live = k6_live(mt, med)
+    if kind == "tr_grid":
+        return (mtk.tr_grid(mt, mi, o, d, t_c, keys, live, lib=lib),)
+    return mtk.sample_distance_grid(mt, mi, o, d, t_c, keys, live, lib=lib)
+
+
+def k6_plain(kind, lanes):
+    """The plain version of entry `kind` (media/media.py) on `lanes`."""
+    mt, med, o, d, t_c, keys = lanes
+    mi, _ = k6_live(mt, med)
+    if kind == "tr_grid":
+        return (mmod.tr_grid_plain(mt, mi, o, d, t_c, keys),)
+    return mmod.sample_distance_grid_plain(mt, mi, o, d, t_c, keys)
+
+
+def compare_k6(tag, kind, lanes, out, plain, limit=None):
+    """K6's outputs against its plain version's on the live lanes (the dead
+    lanes at the kernel's defaults): interacted equal on every lane, t and
+    the transmittance within `limit` ulps (K6_ULP_LIMIT); fails the run
+    otherwise (limit < 0: report only)."""
+    limit = K6_ULP_LIMIT if limit is None else limit
+    _, live = k6_live(lanes[0], lanes[1])
+    res = {"lanes": int(live.shape[0]), "live": int(live.sum())}
+    if kind == "tr_grid":
+        k, p = out[0], plain[0]
+        dead_ok = bool((k[~live] == 1.0).all())
+        res["attenuated"] = int((p[live] < 1.0).sum())
+        res["interacted_mismatch"] = 0
+    else:
+        (ki, k), (pi, p) = out, plain
+        dead_ok = bool((~ki[~live]).all() and (k[~live] == 0.0).all())
+        res["interacted"] = int(pi[live].sum())
+        res["interacted_mismatch"] = int((ki[live] != pi[live]).sum())
+    ulps = ulp_diff(k[live], p[live])
+    res["max_ulp"] = int(ulps.max()) if res["live"] else 0
+    res["lanes_differing"] = int((ulps > 0).sum())
+    res["max_abs_err"] = (float((k[live] - p[live]).abs().max())
+                          if res["live"] else 0.0)
+    bad = (not dead_ok or res["interacted_mismatch"]
+           or (limit >= 0 and res["max_ulp"] > limit))
+    if bad:
+        fail(f"K6 {kind} disagrees with its plain version on {tag}: {res}, "
+             f"dead lanes at their defaults: {dead_ok}")
+    return res
+
+
+def fog_lanes(scene, ds, st, dev, seed):
+    """262,144 lanes of the fog museum for K6's checks, each starting at a
+    random point inside the grid plume's interface box: half along the
+    camera's ray through that point (a camera ray that crossed into the
+    plume), half in random directions (rays scattered in the plume); each
+    lane's segment ends at its closest hit (the box's far face, or what
+    stands inside it). The lanes in the grid medium but 10 % in the room
+    fog, 5 % in the tinted medium and 5 % in vacuum. Returns (mt, med, o,
+    d, t_c, keys)."""
+    gen = np.random.default_rng(seed)
+    mt = mmod.media_view(ds)
+    plume = scene.media_order.index("plume")
+    w2m = mt.w2m[plume].double().cpu().numpy()
+    m2w = np.linalg.inv(w2m)
+    n = N_CHECK_RAYS
+    unit = gen.random((n, 3))
+    o = unit @ m2w[:3, :3].T + m2w[:3, 3]
+    cam = scene.camera.cam_to_world[:3, 3]
+    d_cam = o - cam
+    d_rand = gen.normal(size=(n, 3))
+    d = np.where((np.arange(n) < n // 2)[:, None], d_cam, d_rand)
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    o = torch.from_numpy(o.astype(np.float32)).to(dev).contiguous()
+    d = torch.from_numpy(d.astype(np.float32)).to(dev).contiguous()
+    hit, _ = tw.intersect_wide_cuda(ds, st, o, d, torch.full(
+        (n,), float("inf"), device=dev))
+    t_c = torch.where(hit.valid, hit.t, 1e7).clamp_max(1e7).contiguous()
+    u = gen.random(n)
+    med = np.full(n, plume, np.int32)
+    med[u < 0.2] = scene.media_order.index("room")
+    med[u < 0.1] = scene.media_order.index("tint")
+    med[u < 0.05] = -1
+    med = torch.from_numpy(med).to(dev)
+    keys = rng_mod.uniform_u32(torch.arange(n, device=dev), seed)
+    return (mt, med, o, d, t_c, keys)
+
+
+def fog_edge_lanes(lanes, seed):
+    """The edge batches of K6: 98 % of the lanes in vacuum, every lane in a
+    homogeneous medium or vacuum, one live lane, and 131,073 lanes."""
+    mt, med, o, d, t_c, keys = lanes
+    gen = np.random.default_rng(seed)
+    dead = torch.from_numpy(gen.random(med.shape[0]) < DEAD_SHARE).to(
+        med.device)
+    _, live = k6_live(mt, med)
+    i = int(torch.nonzero(live)[0])
+    cut = 131073
+
+    def sub(sl):
+        return (mt,) + tuple(x[sl].contiguous() for x in (med, o, d, t_c,
+                                                             keys))
+    return [("dead98", (mt, torch.where(dead, -1, med), o, d, t_c, keys)),
+            ("all_dead", (mt, torch.where(live, 0, med), o, d, t_c, keys)),
+            ("n1", sub(slice(i, i + 1))), (f"n{cut}", sub(slice(0, cut)))]
+
+
+def check_k6(lanes, checks, fmad_lib):
+    """Both entry points of K6 against their plain versions on the fog
+    museum's lanes and the edge batches; the -fmad=true build beside them on
+    the full set (reported, not held: PyTorch's own kernels are built with
+    contraction allowed)."""
+    cases = [("fog_museum", lanes)] + fog_edge_lanes(lanes, 59)
+    for kind in mtk.launches:
+        for name, ln in cases:
+            t0 = time.time()
+            plain = k6_plain(kind, ln)
+            torch.cuda.synchronize()
+            plain_ms = (time.time() - t0) * 1e3
+            out = k6_call(kind, ln)
+            torch.cuda.synchronize()
+            res = compare_k6(f"{kind}/{name}", kind, ln, out, plain)
+            res["plain_ms"] = plain_ms
+            checks[f"{kind}/{name}"] = res
+            if name == "fog_museum":
+                checks[f"{kind}/{name}/fmad_true_build"] = compare_k6(
+                    f"{kind}/{name}/fmad", kind, ln,
+                    k6_call(kind, ln, lib=fmad_lib), plain, limit=-1)
+        if checks[f"{kind}/fog_museum"]["live"] < 100000:
+            fail(f"K6 {kind}: the check lanes are hardly live")
+
+
+def k6_texels(mt, mi, p):
+    """The flat atlas indices of the texels a density lookup at p reads
+    (grid_density_lane's eight corners, inside the grid only)."""
+    w = mt.w2m[mi]
+    ph = [w[:, r, 0] * p[:, 0] + w[:, r, 1] * p[:, 1] + w[:, r, 2] * p[:, 2]
+          + w[:, r, 3] for r in range(3)]
+    dims = mt.dens_dims[mi].long()
+    gi = [torch.floor(ph[a] * dims[:, a] - 0.5).to(torch.int64)
+          for a in range(3)]
+    out = []
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                ix, iy, iz = gi[0] + dx, gi[1] + dy, gi[2] + dz
+                inside = ((ix >= 0) & (ix < dims[:, 0]) & (iy >= 0)
+                          & (iy < dims[:, 1]) & (iz >= 0) & (iz < dims[:, 2]))
+                idx = (mt.dens_off[mi].long()
+                       + (iz * dims[:, 1] + iy) * dims[:, 0] + ix)
+                out.append(idx[inside])
+    return torch.cat(out)
+
+
+def k6_work(kind, lanes):
+    """What K6 has to do on `lanes`: the steps its live lanes run (to the
+    step that passes t_c, or, delta tracking, the one that interacts), the
+    density lookups among them, and the distinct texels those read."""
+    mt, med, o, d, t_c, keys = lanes
+    mi, live = k6_live(mt, med)
+    inv_max_m, sig_mean_m = mmod.tracking_constants(mt)
+    inv_max, sig_mean = inv_max_m[mi], sig_mean_m[mi]
+    steps_n, word = ((mmod.TR_STEPS, mmod.TR_WORD) if kind == "tr_grid"
+                     else (mmod.DISTANCE_STEPS, mmod.DISTANCE_WORD))
+    t = torch.zeros_like(t_c)
+    running = live.clone()
+    steps = lookups = 0
+    texels = []
+    for k in range(steps_n):
+        u = rng_mod.uniform_float(keys, k, word)
+        t = t - torch.log(1.0 - u) * inv_max
+        steps += int(running.sum())
+        look = running & (t < t_c)
+        lookups += int(look.sum())
+        p = o + t[:, None] * d
+        texels.append(k6_texels(mt, mi[look], p[look]))
+        if kind == "tr_grid":
+            running = look
+        else:
+            dens = mmod.grid_density_lane(mt, mi, p)
+            real = rng_mod.uniform_float(keys, k, mmod.REAL_WORD) < (
+                dens * sig_mean * inv_max)
+            running = look & ~real
+    return {"live_lanes": int(live.sum()), "steps": steps,
+            "lookups": lookups,
+            "distinct_texels": int(torch.unique(torch.cat(texels)).numel())}
+
+
+def k6_bound(kind, lanes, work):
+    """The least time of K6's work on `lanes`: the bytes it must move (each
+    live lane's inputs, every lane's live byte and outputs, each distinct
+    texel once) over the memory rate, or its operations (OPS_PER_TRACK_STEP
+    a step, K6_OPS_PER_LOOKUP a density lookup and decision) over the
+    float32 rate, whichever is longer."""
+    n = lanes[1].shape[0]
+    live = work["live_lanes"]
+    bytes_moved = (LANE_IN_BYTES * live + (n - live)
+                   + K6_OUT_BYTES[kind] * n
+                   + TEXEL_BYTES * work["distinct_texels"])
+    ops = (OPS_PER_TRACK_STEP * work["steps"]
+           + K6_OPS_PER_LOOKUP[kind] * work["lookups"])
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_OPS_PER_S * 1e3
+    return {**work, "bytes_moved_at_least": bytes_moved, "ops": ops,
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def k6_timing(kind, lanes, keep_plain=None):
+    """Entry `kind` on `lanes`: the wrapper call and the kernel alone
+    (CUDA events), the plain version's call, and the bound. `keep_plain`, a
+    list, receives the plain version's output."""
+    lib = mtk.get_lib()
+    t0 = time.time()
+    plain = k6_plain(kind, lanes)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    if keep_plain is not None:
+        keep_plain.append(plain)
+    return {"kernel_ms": time_ms(lambda: k6_call(kind, lanes), 10),
+            "kernel_alone_ms": kernel_alone_ms(
+                lambda lib_: k6_call(kind, lanes, lib=lib_), lib, reps=5),
+            "plain_ms": plain_ms, **k6_bound(kind, lanes, k6_work(kind, lanes))}
+
+
+@contextlib.contextmanager
+def plain_tracking():
+    """The media functions run K6's plain versions instead of its wrappers
+    (for the plain-version render; media.py looks the wrappers up at each
+    call)."""
+    saved = {k: getattr(mtk, k) for k in mtk.launches}
+    mtk.tr_grid = lambda mt, mi, o, d, t_c, keys, live, lib=None: (
+        mmod.tr_grid_plain(mt, mi, o, d, t_c, keys))
+    mtk.sample_distance_grid = lambda mt, mi, o, d, t_c, keys, live, lib=None: (
+        mmod.sample_distance_grid_plain(mt, mi, o, d, t_c, keys))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(mtk, k, v)
+
+
+def recorded_tracking(r, b):
+    """Every K6 call of batch `b` of sample 0 of renderer `r`, as the lanes
+    (mt, med, o, d, t_c, keys) it was handed (the main path's own shapes
+    and data), by entry point."""
+    calls = {k: [] for k in mtk.launches}
+    saved = {k: getattr(mtk, k) for k in mtk.launches}
+
+    def recorder(kind):
+        def rec(mt, mi, o, d, t_c, keys, live, lib=None):
+            med = torch.where(live, mi.to(torch.int32), -1)
+            calls[kind].append((mt, med.contiguous(), o.detach().clone(),
+                                d.detach().clone(), t_c.clone(),
+                                keys.clone()))
+            return saved[kind](mt, mi, o, d, t_c, keys, live, lib=lib)
+        return rec
+    for k in mtk.launches:
+        setattr(mtk, k, recorder(k))
+    try:
+        with torch.no_grad():
+            r._step(r.new_film(), 0, b)
+    finally:
+        for k, v in saved.items():
+            setattr(mtk, k, v)
+    return calls
+
+
+def k6_main_shape(r):
+    """K6 on the calls of the middle batch of the fog museum's sample 0:
+    each call against its plain version (every output, to K6_ULP_LIMIT),
+    and per entry point the mean over its calls of the wrapper call, the
+    kernel alone, the plain version and the bound."""
+    calls = recorded_tracking(r, r.n_batches // 2)
+    out = {}
+    for kind, lanes_list in calls.items():
+        if not lanes_list:
+            fail(f"the fog museum's batch made no {kind} call")
+        rows = []
+        for i, lanes in enumerate(lanes_list):
+            plain = []
+            timing = k6_timing(kind, lanes, plain)
+            rows.append({**compare_k6(f"{kind}/main_path/{i}", kind, lanes,
+                                      k6_call(kind, lanes), plain[0]),
+                         **timing})
+        mean = {k: sum(row[k] for row in rows) / len(rows)
+                for k in ("kernel_ms", "kernel_alone_ms", "plain_ms",
+                          "bound_ms", "live", "steps", "lookups",
+                          "distinct_texels")}
+        out[kind] = {"calls": len(rows), "lanes": rows[0]["lanes"],
+                     "mean_per_call": mean,
+                     "bound_by_calls": collections.Counter(
+                         row["bound_by"] for row in rows),
+                     "max_ulp": max(row["max_ulp"] for row in rows),
+                     "max_abs_err": max(row["max_abs_err"] for row in rows),
+                     "interacted_mismatch": sum(
+                         row["interacted_mismatch"] for row in rows)}
+    return out
+
+
+def media(dev, static_museum, fog, with_profile) -> dict:
+    """The media phase: tools/testscenes.py `spectral_museum` (upload with
+    spectral=True: 60-bin transport under the path integrator) and
+    `fog_museum` (volpath: a homogeneous room fog, a FOG_GRID_RES^3 grid
+    plume behind a null-material interface box, a tinted glass statue) at
+    MUSEUM_65K's size, SPP_MEDIA samples each at MAIN_RES with the launch
+    counts set to 0 just before and read just after: the spectral museum
+    through K1 beside `static_museum` = (scene, tables) rendered in this
+    phase, the fog museum through K1 and K6 (volpath's 10 iterations a
+    batch: a closest hit and four shadow segments, one delta-tracking and
+    four ratio-tracking calls each); each against the plain versions on
+    PLAIN_CROP; K6 at the main path's shapes (the middle batch's calls);
+    one fwd+bwd sample of each, the film linear in light_L. `fog` = (scene,
+    tables, host seconds) from the kernels phase."""
+    sc65, tables65 = static_museum
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = testscenes.spectral_museum(tmp, **MUSEUM_65K)
+        sc_spec = flatten(parse_file(path), tmp)
+    tables_s = upload(sc_spec, light_strategy=sc_spec.integrator.light_strategy,
+                      device=dev, spectral=True)
+    torch.cuda.synchronize()
+    t_spec = time.time() - t0
+    if tables_s[1].n_channels != 60 or tables_s[1].n_media:
+        fail(f"the spectral museum's tables are not what it asks for: "
+             f"{tables_s[1]}")
+    r = Renderer(sc_spec, device=dev, tables=tables_s)
+    film, ms_s, counts_s = drive(r, {"traverse_wide": 1}, SPP_MEDIA)
+    fin_s, lum_s = check_image(r, film, "spectral_museum")
+    img_s = r.image(film)
+    del film
+    r_static = Renderer(sc65, device=dev, tables=tables65)
+    _, ms_static, _ = drive(r_static, {"traverse_wide": 1}, 1)
+    del r_static
+    plain_s = against_plain_render(sc_spec, tables_s, "traverse_wide", dev,
+                                   crop=PLAIN_CROP)
+    grads_s = emitter_grads(r, {k: getattr(tables_s[0], k)
+                                for k in GRAD_PARAMS}, 1, ("light_L",),
+                            LINEARITY_RTOL, "spectral")
+    del r
+
+    scene, tables, fog_host_s = fog
+    ds, st = tables
+    iters = scene.integrator.max_depth + 1 + 4
+    per_batch = {"traverse_wide": 5 * iters, "sample_distance_grid": iters,
+                 "tr_grid": 4 * iters}
+    r = Renderer(scene, device=dev, tables=tables)
+    film, ms_f, counts_f = drive(
+        r, {k: v / (5 * iters) for k, v in per_batch.items()}, SPP_MEDIA,
+        calls_per_vertex=5, vertices=iters)
+    fin_f, lum_f = check_image(r, film, "fog_museum")
+    img_f = r.image(film)
+    del film
+    main_shape = k6_main_shape(r)
+    t0 = time.time()
+    crop_scene = dataclasses.replace(
+        scene, film=dataclasses.replace(scene.film, crop=PLAIN_CROP))
+    before = launch_counts()
+    rk = Renderer(crop_scene, device=dev, tables=tables)
+    img_k = rk.image(rk.render(spp=1))
+    ran = {k: launch_counts()[k] - before[k] for k in per_batch}
+    if min(ran.values()) <= 0:
+        fail(f"the fog museum's cropped render missed a kernel: {ran}")
+    with plain_tracking():
+        rp = Renderer(crop_scene, device=dev, tables=tables,
+                      isect=plain_traversal("traverse_wide"))
+        img_p = rp.image(rp.render(spp=1))
+    torch.cuda.synchronize()
+    rel_f = mean_rel(img_k, img_p)
+    if not rel_f <= 1e-4 or not float(img_p.mean()) > 0.0:
+        fail(f"the fog museum's render differs from its plain-version "
+             f"render: rel {rel_f}")
+    plain_f = {"plain_render_s": round(time.time() - t0, 1),
+               "plain_render_crop": PLAIN_CROP,
+               "plain_vs_kernel_mean_rel": rel_f,
+               "plain_vs_kernel_max_pixel_abs": float(
+                   np.abs(img_k - img_p).max())}
+    del rk, rp
+    # pass 2 of value_and_grad replays traversal from pass 1's record but
+    # runs the shading chain again, K6 with it: twice a batch
+    grads_f = emitter_grads(
+        r, {k: getattr(ds, k) for k in MEDIA_PARAMS}, 1, ("light_L",),
+        LINEARITY_RTOL, "fog", per_batch={
+            k: v * (1 if k == "traverse_wide" else 2)
+            for k, v in per_batch.items()})
+    profiled = ({"profile_fog_spp": profile_one_spp(lambda: r.render(spp=1))}
+                if with_profile else {})
+    batches = r.n_batches
+    del r
+    return {
+        "spectral_museum": {
+            "scene": "tools/testscenes.py spectral_museum", **MUSEUM_65K,
+            "n_channels": tables_s[1].n_channels,
+            "write_flatten_upload_s": round(t_spec, 2),
+            "resolution": [MAIN_RES, MAIN_RES],
+            "max_depth": sc_spec.integrator.max_depth, "spp": SPP_MEDIA,
+            "ms_per_spp": ms_s,
+            "camera_rays_per_s": MAIN_RES * MAIN_RES / (ms_s * 1e-3),
+            "static_museum_ms_per_spp": ms_static, "launches": counts_s,
+            "finite_pixel_share": fin_s, "mean_luminance": lum_s,
+            "image_mean_rgb": [float(x) for x in img_s.reshape(-1, 3).mean(0)],
+            **plain_s, "gradients": grads_s},
+        "fog_museum": {
+            "scene": "tools/testscenes.py fog_museum", **MUSEUM_65K,
+            "grid_res": FOG_GRID_RES, "media": scene.media_order,
+            "camera_medium": st.camera_medium,
+            "any_grid_media": st.any_grid_media,
+            "has_med_interfaces": st.has_med_interfaces,
+            "triangles": st.n_tris, "host_s": fog_host_s,
+            "resolution": [MAIN_RES, MAIN_RES],
+            "max_depth": scene.integrator.max_depth, "iterations": iters,
+            "spp": SPP_MEDIA, "batches": batches, "ms_per_spp": ms_f,
+            "camera_rays_per_s": MAIN_RES * MAIN_RES / (ms_f * 1e-3),
+            "launches": counts_f,
+            "launches_expected_per_batch": per_batch,
+            "finite_pixel_share": fin_f, "mean_luminance": lum_f,
+            "image_mean_rgb": [float(x) for x in img_f.reshape(-1, 3).mean(0)],
+            **plain_f, "k6_at_main_shape": main_shape,
+            "gradients": grads_f, **profiled}}
 
 
 if __name__ == "__main__":

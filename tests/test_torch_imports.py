@@ -178,3 +178,33 @@ def test_the_motion_camera_and_tool_modules_are_among_them():
                          text=True, env=env, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "JAX False" in out.stdout
+
+
+def test_the_spectral_and_media_modules_are_among_them():
+    """The spectral and media slice: the spectrum tables (the CIE data file
+    copied beside them), the media, the volpath integrator and K6's wrapper
+    import without a card, without building anything and without jax or
+    tpupt; K6's launch counts start at 0."""
+    names = set(_module_names())
+    assert {"tpupt_torch.core.spectrum", "tpupt_torch.media.media",
+            "tpupt_torch.integrators.volpath",
+            "tpupt_torch.ops.media_tracking"} <= names
+    code = (
+        "import sys\n"
+        "import tpupt_torch.ops.media_tracking as k6\n"
+        "from tpupt_torch.core import spectrum\n"
+        "from tpupt_torch.integrators.volpath import volpath_li\n"
+        "from tpupt_torch.media.media import tr_lane, sample_distance_lane\n"
+        "assert k6._LIB is None\n"
+        "assert k6.launches == {'tr_grid': 0, 'sample_distance_grid': 0}\n"
+        "assert spectrum.smits_tables() is not None\n"
+        "print('JAX', any(m.split('.')[0] in ('jax', 'jaxlib', 'tpupt') "
+        "for m in sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "JAX False" in out.stdout
+    for src in ("tpupt_torch/csrc/media_tracking.cu",
+                "tpupt_torch/core/cie_data.npz"):
+        assert os.path.exists(os.path.join(ROOT, src)), src

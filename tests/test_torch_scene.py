@@ -114,12 +114,38 @@ def test_from_numpy_carries_tables_across(tmp_path):
     assert st_t.n_spheres == 7 and st_t.max_leaf == st_j.max_leaf
 
 
-def test_from_numpy_refuses_unported_statics(tmp_path):
-    sj, _ = _both("random_triangles", tmp_path)
-    fields, statics = testscenes.tables_as_numpy(*jax_upload(sj))
-    statics["n_channels"] = 60
-    with pytest.raises(NotImplementedError, match="n_channels"):
-        from_numpy(fields, statics, device="cpu")
+_FOG_BALL = """
+Camera "perspective" "float fov" [45]
+Film "image" "integer xresolution" [8] "integer yresolution" [8]
+Integrator "volpath"
+WorldBegin
+MakeNamedMedium "fog" "string type" "homogeneous" "rgb sigma_a" [0.1 0.2 0.3]
+AttributeBegin
+Material "none"
+MediumInterface "fog" ""
+Shape "sphere" "float radius" [1]
+AttributeEnd
+Shape "trianglemesh" "point P" [-1 -1 3  1 -1 3  0 1 3] "integer indices" [0 1 2]
+WorldEnd
+"""
+
+
+def test_from_numpy_refuses_unported_statics():
+    """No static refuses any more: the spectral and media statics, the
+    last ones that did (n_channels, n_media), come across from the JAX
+    package's tables with the media tables, array-equal."""
+    ds_j, st_j = jax_upload(jax_flatten(jax_parse_string(_FOG_BALL)),
+                            spectral=True)
+    fields, statics = testscenes.tables_as_numpy(ds_j, st_j)
+    ds_t, st_t = from_numpy(fields, statics, device="cpu")
+    assert (st_t.n_channels, st_t.n_media, st_t.has_med_interfaces) == (
+        60, 1, True)
+    for f in ("n_channels", "n_media", "camera_medium", "any_grid_media",
+              "has_med_interfaces"):
+        assert getattr(st_t, f) == getattr(st_j, f), f
+    for f in DeviceScene._fields:
+        if f.startswith("med_") or f.startswith("prim_med_"):
+            _assert_same_bits(f, fields[f], getattr(ds_t, f).numpy())
 
 
 def test_cuda_device_without_card_raises(tmp_path):
@@ -133,11 +159,11 @@ def test_cuda_device_without_card_raises(tmp_path):
 # each feature the port still refuses: (scene lines, the step that raises,
 # the words that begin its item in ROADMAP.md's queue 1)
 _UNPORTED = {
-    "medium": ('MakeNamedMedium "fog" "string type" "homogeneous"',
-               "flatten", "Media and volpath"),
     "integrator": ("", "renderer", "Other integrators"),
-    "volpath": ("", "renderer", "Media and volpath"),
     "mesh": ("", "training step on two devices", "Multi-GPU"),
+    "medium_gradients": ('MakeNamedMedium "fog" "string type" "homogeneous"',
+                         "value_and_grad of a medium table",
+                         "Media and volpath"),
 }
 
 # features the port refused until they were ported: (scene lines, header
@@ -152,6 +178,14 @@ _PORTED = {
     "realistic": ("", ""),
     "motion": ("ActiveTransform EndTime\nTranslate 0.2 0 0\n"
                "ActiveTransform All", ""),
+    # media and volpath (queue 1, item 11): a global fog, and the volpath
+    # integrator over it
+    "medium": ('MakeNamedMedium "fog" "string type" "homogeneous" '
+               '"rgb sigma_a" [0.05 0.05 0.05] "rgb sigma_s" [0.1 0.1 0.1]',
+               ""),
+    "volpath": ('MakeNamedMedium "fog" "string type" "homogeneous" '
+                '"rgb sigma_a" [0.05 0.05 0.05] "rgb sigma_s" [0.1 0.1 0.1]',
+                'Integrator "volpath"'),
 }
 
 
@@ -199,6 +233,10 @@ WorldEnd
     with refusal:
         if where == "renderer":
             Renderer(sc, device="cpu")
+        elif feature == "medium_gradients":
+            r = Renderer(sc, device="cpu")
+            r.value_and_grad(lambda f: f.rgb.sum(),
+                             {"med_sigma_a": r.ds.med_sigma_a})
         else:
             train_step_fn(sc, ["cpu", "cpu"], np.zeros((8, 8, 3)),
                           device="cpu")
@@ -222,8 +260,9 @@ def test_failed_native_build_raises(monkeypatch, tmp_path):
 def test_formerly_unported_features_render(feature, tmp_path):
     """The scene lines of each feature the port refused before it was
     ported (the Disney, mix, hair, Fourier and subsurface materials, the
-    sobol sampler, the realistic camera and motion blur) flatten, upload
-    and render on the CPU, with finite pixels, under a distant light."""
+    sobol sampler, the realistic camera, motion blur, media and the volpath
+    integrator) flatten, upload and render on the CPU, with finite pixels,
+    under a distant light."""
     from tpupt_torch.integrators.path import Renderer
 
     lines, head = _PORTED[feature]
@@ -256,5 +295,11 @@ WorldEnd
         assert sc.camera.lens_data.shape == (6, 4) and r.pupil is not None
     elif feature == "motion":
         assert st.has_motion and not st.cam_animated
+    elif feature in ("medium", "volpath"):
+        # the fog is the camera medium (named media, no interface); path
+        # renders through it unattenuated, volpath through volpath_li
+        assert (st.n_media, st.camera_medium) == (1, 0)
+        assert (sc.integrator.name == "volpath") == (feature == "volpath")
+        assert img.mean() > 0
     else:
         assert st.mat_features

@@ -33,6 +33,7 @@ from __future__ import annotations
 import math
 import os
 import time as _time
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -45,7 +46,8 @@ from tpupt_torch.cameras.realistic import bound_exit_pupil, realistic_rays
 from tpupt_torch.core import rng
 from tpupt_torch.core.rng import M32, as_u32
 from tpupt_torch.core.sampling import cosine_sample_hemisphere, power_heuristic
-from tpupt_torch.core.spectrum import luminance
+from tpupt_torch.core.spectrum import (N_SPECTRAL_SAMPLES, luminance,
+                                       rgb_to_spectrum, sampled_to_rgb)
 from tpupt_torch.core.vecmath import (absdot, coordinate_system, cross, dot,
                                       normalize, offset_ray_origin, safe_sqrt)
 from tpupt_torch.film import film as filmmod
@@ -54,6 +56,7 @@ from tpupt_torch.lights.lights import (emitted_radiance, env_pdf,
                                        env_radiance, pdf_li, sample_li)
 from tpupt_torch.materials import bsdf as bx
 from tpupt_torch.materials.bssrdf import sss_exit, sw_lobe
+from tpupt_torch.media.media import build_medium
 from tpupt_torch.ops import traverse_kdbsp, traverse_treelets, traverse_wide
 from tpupt_torch.samplers.samplers import WavefrontSampler
 from tpupt_torch.scene.device import (DeviceScene, SceneStatics, upload,
@@ -63,6 +66,9 @@ from tpupt_torch.shapes.quadric import quadric_normal_uv
 from tpupt_torch.shapes.sphere import transform_normal
 
 _RR_START = 3  # bounces before RR kicks in (path.cpp:193)
+# the integrators spectral transport covers (the others warn and render RGB)
+SPECTRAL_INTEGRATORS = ("path", "volpath", "bdpt", "mlt", "directlighting",
+                        "whitted", "ambientocclusion")
 # fixed wavefront batch: one shape of work whatever the resolution
 BATCH_RAYS = 131072
 
@@ -254,6 +260,39 @@ def pick_traversal(st: SceneStatics, alt: bool = False):
     return traverse_wide.intersect_wide_cuda
 
 
+def detached_traversal(isect, ds: DeviceScene, st: SceneStatics,
+                       with_stats: bool, time=None):
+    """`intersect(o, d, tmax, any_hit=False)` -> (Hit, TraversalStats) over
+    `isect` with everything it is handed and everything it returns detached:
+    traversal is non-differentiable (integer hit ids), so cotangents reach
+    materials, lights and the camera through the shading chain only (the
+    detached-sampling estimator). `time` (N,) goes to every call in a
+    motion scene."""
+    ds_trav = ds._replace(**{k: v.detach() for k, v in ds._asdict().items()
+                             if isinstance(v, torch.Tensor) and v.requires_grad})
+    kw_time = ({"time": time.detach().contiguous()}
+               if time is not None and st.has_motion else {})
+
+    def intersect(o_, d_, tmax_, any_hit=False):
+        hit, stats = isect(ds_trav, st, o_.detach().contiguous(),
+                           d_.detach().contiguous(),
+                           tmax_.detach().contiguous(), any_hit=any_hit,
+                           with_stats=with_stats, **kw_time)
+        return trav.Hit(*(x.detach() for x in hit)), stats
+    return intersect
+
+
+def uplift(st: SceneStatics):
+    """The colour uplift of the scene's transport: `rgb_to_spectrum` under
+    60-bin spectral transport, else the identity (nothing is dispatched)."""
+    if st.n_channels == 3:
+        return lambda x: x
+    if st.n_channels != N_SPECTRAL_SAMPLES:
+        raise ValueError(f"n_channels={st.n_channels}: 3 (RGB) or "
+                         f"{N_SPECTRAL_SAMPLES} (spectral)")
+    return rgb_to_spectrum
+
+
 def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
             max_depth: int, rr_threshold: float,
             px, py, sample_idx, o, d, isect=None, tables=None,
@@ -272,27 +311,19 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
     exit's shadow ray) as `isect(..., time=time)` in a motion scene; in a
     static one (an animated camera has used it already) and without it
     `isect` gets no `time`.
+
+    Spectral transport (st.n_channels == 60, SampledSpectrum): every colour
+    is uplifted where it enters the throughput chain (the light sample's
+    f and Li separately: their product is a metamer product), beta and L
+    are (N, 60), and L goes back to RGB after the loop.
     Returns (L (N,3), aov (N,4))."""
     if isect is None:
         isect = pick_traversal(st)
     if tables is None:
         tables = (tri_shade_table(ds), sph_shade_table(ds))
-    # traversal is non-differentiable (integer hit ids): its inputs, the
-    # tables it reads among them, and its hit record are detached, so
-    # cotangents reach materials, lights and the camera through the shading
-    # chain only (the detached-sampling estimator)
-    ds_trav = ds._replace(**{k: v.detach() for k, v in ds._asdict().items()
-                             if isinstance(v, torch.Tensor) and v.requires_grad})
-
-    kw_time = ({"time": time.detach().contiguous()}
-               if time is not None and st.has_motion else {})
-
-    def intersect(o_, d_, tmax_, any_hit=False):
-        hit, stats = isect(ds_trav, st, o_.detach().contiguous(),
-                           d_.detach().contiguous(),
-                           tmax_.detach().contiguous(), any_hit=any_hit,
-                           with_stats=with_stats, **kw_time)
-        return trav.Hit(*(x.detach() for x in hit)), stats
+    intersect = detached_traversal(isect, ds, st, with_stats, time)
+    spec = uplift(st)
+    n_chan = st.n_channels
 
     n = o.shape[0]
     dev = o.device
@@ -337,8 +368,8 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
             return row_pmf(grid_cdf_row(p), lid)
         return ds.light_pdf[lid.long()]
 
-    L = o.new_zeros((n, 3))
-    beta = o.new_ones((n, 3))
+    L = o.new_zeros((n, n_chan))
+    beta = o.new_ones((n, n_chan))
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     prev_specular = torch.ones(n, dtype=torch.bool, device=dev)
     prev_pdf = o.new_ones(n)
@@ -373,7 +404,7 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
             pmf0 = light_pmf_at(prev_p, lid0)
             w_bsdf = power_heuristic(1.0, prev_pdf, 1.0, lp * pmf0)
             w = torch.where(prev_specular, 1.0, w_bsdf)
-            L = L + beta * le * w[..., None]
+            L = L + beta * spec(le) * w[..., None]
 
             # miss -> infinite lights (path.cpp:100-107)
             miss = alive & ~hit.valid
@@ -387,7 +418,7 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
                 prev_specular, 1.0,
                 power_heuristic(1.0, prev_pdf, 1.0, miss_pdf * inf_pmf_r))
             L = L + torch.where(miss[..., None],
-                                beta * miss_le * w_inf[..., None], 0.0)
+                                beta * spec(miss_le) * w_inf[..., None], 0.0)
 
         alive = alive & hit.valid & (not is_last)
 
@@ -433,7 +464,7 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
             # pair sums to 1 (EstimateDirect, integrator.cpp:130)
             w_l = torch.where(ls.is_delta, 1.0,
                               power_heuristic(1.0, ls.pdf * pmf, 1.0, pdf_b))
-            contrib = beta * f_l * ls.li * (
+            contrib = beta * spec(f_l) * spec(ls.li) * (
                 w_l / (ls.pdf * pmf).clamp_min(1e-12))[..., None]
             L = L + torch.where((can & ~occluded)[..., None], contrib, 0.0)
 
@@ -442,7 +473,7 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
         wi_w = bx.to_world(t_f, b_f, n_f, bs.wi)
         cos_w = absdot(wi_w, sp.ns)
         ok = bs.pdf > 1e-9
-        thru = bs.f * (cos_w / bs.pdf.clamp_min(1e-9))[..., None]
+        thru = spec(bs.f) * (cos_w / bs.pdf.clamp_min(1e-9))[..., None]
         spawn_p, spawn_ng = sp.p, sp.ng
         bs_specular, bs_pdf = bs.specular, bs.pdf
 
@@ -464,7 +495,7 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
                 lambda o_, d_, t_: intersect(o_, d_, t_)[0],
                 lambda h_, o_, d_: shading_point(ds, st, h_, o_, d_, tables))
             eta1 = mp.eta[..., 0]
-            beta_exit = beta * thru * w_prof   # throughput AT the exit
+            beta_exit = beta * thru * spec(w_prof)   # throughput AT the exit
             te, be_ = coordinate_system(ne)
 
             # NEE at the exit vertex (UniformSampleOneLight)
@@ -485,7 +516,8 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
                     1.0, ls_e.pdf * pmf_e, 1.0,
                     cos_e.clamp_min(0.0) / math.pi))
                 contrib_e = beta_exit * (f_sw * cos_e * w_mis / (
-                    ls_e.pdf * pmf_e).clamp_min(1e-12))[..., None] * ls_e.li
+                    ls_e.pdf * pmf_e).clamp_min(1e-12))[..., None] * spec(
+                        ls_e.li)
                 L = L + torch.where((can_e & ~occ_e)[..., None], contrib_e,
                                     0.0)
 
@@ -496,7 +528,8 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
             pdf_sss = (wi_le[..., 2] / math.pi).clamp_min(1e-9)
             f_cont = sw_lobe(eta1, c_norm, wi_le[..., 2])
             # thru at the exit = w_prof * Sw * cos / pdf
-            thru_sss = w_prof * (f_cont * wi_le[..., 2] / pdf_sss)[..., None]
+            thru_sss = spec(w_prof) * (f_cont * wi_le[..., 2]
+                                       / pdf_sss)[..., None]
             wi_w = torch.where(entered[..., None], wi_sss, wi_w)
             thru = torch.where(entered[..., None],
                                torch.where(ok_sss[..., None],
@@ -534,6 +567,8 @@ def path_li(ds: DeviceScene, st: SceneStatics, sampler: WavefrontSampler,
                        aov_leaves.to(torch.float32),
                        aov_tests.to(torch.float32),
                        path_len.to(torch.float32)], -1)
+    if n_chan != 3:
+        L = sampled_to_rgb(L)
     return L, aov
 
 
@@ -578,24 +613,37 @@ class Renderer:
     traversal `pick_traversal` picks. collect_stats (False by default, as in
     the JAX package) is handed to the traversal's `with_stats`: without it
     the kernels leave the per-ray counters (the node-visit, leaf-visit and
-    prim-test AOVs) out; the images are the same either way."""
+    prim-test AOVs) out; the images are the same either way.
+
+    Integrators: `path`, and `volpath`, which renders a scene with media
+    through integrators/volpath.py (`volpath_li`) and one without through
+    `path_li`, as the JAX package does. spectral=True renders with 60-bin
+    sampled-spectrum transport (`upload(spectral=True)`; tables handed over
+    are switched to it); an integrator outside the spectral families warns
+    and renders in RGB."""
 
     def __init__(self, scene: FlatScene, device="cuda",
                  light_strategy: str = None, tables=None, isect=None,
-                 collect_stats: bool = False):
-        if scene.integrator.name != "path":
-            # volpath comes with the media (item 11), the rest in item 12
-            item = 11 if scene.integrator.name == "volpath" else 12
+                 collect_stats: bool = False, spectral: bool = False):
+        name = scene.integrator.name
+        if spectral and name not in SPECTRAL_INTEGRATORS:
+            warnings.warn("spectral transport covers the path/volpath/bdpt/"
+                          f"mlt integrator families; {name} renders in RGB")
+            spectral = False
+        if name not in ("path", "volpath"):
             raise NotImplementedError(
-                f"integrator {scene.integrator.name!r} is not in the PyTorch "
-                f"port yet (ROADMAP.md queue 1, item {item})")
+                f"integrator {name!r} is not in the PyTorch port yet "
+                "(ROADMAP.md queue 1, item 12)")
         accel = (scene.accelerator_name or "bvh").lower()
         self.device = torch.device(device)
         self.scene = scene
         strategy = light_strategy or scene.integrator.light_strategy
         t0 = _time.time()
         self.ds, self.st = tables or upload(
-            scene, light_strategy=strategy, device=self.device)
+            scene, light_strategy=strategy, device=self.device,
+            spectral=spectral)
+        if spectral:
+            self.st = self.st._replace(n_channels=N_SPECTRAL_SAMPLES)
         alt = accel not in ("bvh", "bvhold")
         if alt:
             self._set_alt_accel(accel)
@@ -618,6 +666,10 @@ class Renderer:
         if cam.lens_data is not None:
             self.pupil = torch.from_numpy(bound_exit_pupil(
                 cam.lens_data, cam.lens_z, cam.film_diag)).to(self.device)
+
+        # the first medium's parameters, for tools that inspect one medium
+        self._medium = (build_medium(next(iter(scene.media.values())), scene)
+                        if scene.media else None)
 
         pxf, pyf = _pixel_order(self.cfg)
         # fixed-size wavefront batches; the tail is padded and masked
@@ -687,12 +739,20 @@ class Renderer:
                                  cam.lens_radius, cam.focal_distance,
                                  self.cfg.xres, self.cfg.yres, **keys)
         integ = self.scene.integrator
-        L, aov = path_li(
-            ds, st, sampler, integ.max_depth, integ.rr_threshold,
-            px_b, py_b, sample_idx, o, d, isect=isect or self._isect,
-            tables=tables or self._shade_tables,
-            with_stats=self.collect_stats if with_stats is None else with_stats,
-            time=time)
+        kw = dict(isect=isect or self._isect,
+                  tables=tables or self._shade_tables,
+                  with_stats=(self.collect_stats if with_stats is None
+                              else with_stats))
+        if integ.name == "volpath" and st.n_media > 0:
+            from tpupt_torch.integrators.volpath import volpath_li
+
+            L, aov = volpath_li(ds, st, sampler, integ.max_depth,
+                                integ.rr_threshold, px_b, py_b, sample_idx,
+                                o, d, **kw)
+        else:
+            L, aov = path_li(ds, st, sampler, integ.max_depth,
+                             integ.rr_threshold, px_b, py_b, sample_idx, o,
+                             d, time=time, **kw)
         # NaN/inf clamping to black (integrator.cpp:300-321): the reference
         # kills samples with NEGATIVE LUMINANCE (y < -1e-5), not per-channel
         # negatives
@@ -750,6 +810,11 @@ class Renderer:
         unknown = sorted(set(params) - set(DeviceScene._fields))
         if unknown:
             raise KeyError(f"not fields of DeviceScene: {unknown}")
+        media = sorted(k for k in params if k.startswith("med_"))
+        if media:
+            raise NotImplementedError(
+                f"gradients with respect to the medium tables {media} are "
+                "not in the PyTorch port yet (ROADMAP.md queue 1, item 11)")
         sample_idx = int(sample_idx)
         leaves = {k: v.detach().to(self.device).requires_grad_()
                   for k, v in params.items()}

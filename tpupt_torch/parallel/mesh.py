@@ -21,14 +21,23 @@ PARAMS = ("mat_kd", "mat_ks", "mat_roughness", "light_L", "env_map",
           "tex_atlas", "raster_to_camera", "cam_to_world")
 
 
-def train_step_fn(scene, mesh, target, device="cuda", tables=None):
+def train_step_fn(scene, mesh, target, device="cuda", tables=None,
+                  spectral: bool = False):
     """A training step: forward render of every ray -> L2 loss of per-ray
     radiance against `target` -> reverse-mode gradients with respect to the
     parameter tables (traversal detached) -> SGD update.
 
     `mesh`: None, or a sequence of devices; with more than one device it
     raises NotImplementedError, with one the step runs there instead of on
-    `device`. `target` (H, W, 3) image. `tables` as for `Renderer`.
+    `device`. `target` (H, W, 3) image. `tables` and `spectral` as for
+    `Renderer`.
+
+    The per-ray radiance is the film's estimator, `Renderer._radiance`: the
+    scene's integrator (volpath for a scene with media), its transport
+    (spectral or RGB), and bad samples (non-finite, or of luminance below
+    -1e-5) black. The JAX package's step calls its path integrator in RGB
+    whatever the scene and compares the raw radiance (ROADMAP.md section
+    3).
 
     Returns (step, params0): `step(params, sample_idx, lr) -> (loss,
     new_params)`, `params0` the scene's own tables by the names of `PARAMS`.
@@ -46,7 +55,7 @@ def train_step_fn(scene, mesh, target, device="cuda", tables=None):
                 "torch.distributed all-reduce that is not in the PyTorch "
                 "port yet (ROADMAP.md queue 1, item 13)")
         device = mesh[0] if mesh else device
-    base = Renderer(scene, device=device, tables=tables)
+    base = Renderer(scene, device=device, tables=tables, spectral=spectral)
     cfg = base.cfg
     target = torch.as_tensor(target, dtype=torch.float32,
                              device=base.device).reshape(-1, 3)

@@ -31,6 +31,7 @@ from tpupt_torch.accel.bvh import (BVHArrays, build_bvh, build_bvh_split,
 from tpupt_torch.accel.treelets import (TREELET_NODES, TREELET_PRIMS,
                                         build_treelets)
 from tpupt_torch.core.sampling import build_distribution2d
+from tpupt_torch.media.media import build_media_table
 from tpupt_torch.scene.flatten import FlatScene
 from tpupt_torch.textures.textures import present_types
 
@@ -166,7 +167,8 @@ class DeviceScene(NamedTuple):
     # world bounds
     world_lo: torch.Tensor
     world_hi: torch.Tensor
-    # per-interface media: one-row dummies until media are ported
+    # per-interface media (media/media.py MediaTable; one-row dummies in a
+    # scene without media)
     med_sigma_a: torch.Tensor
     med_sigma_s: torch.Tensor
     med_g: torch.Tensor
@@ -238,10 +240,6 @@ class SceneStatics(NamedTuple):
     mix_features: frozenset = frozenset()
 
 
-# statics that must be off in tables handed over from the JAX package: each
-# names a feature this package does not render yet, (off value, ROADMAP.md
-# queue 1 item)
-_UNPORTED_STATICS = dict(n_media=(0, 11), n_channels=(3, 10))
 # floats of a prim row's motion deltas on the device (the JAX package: 9)
 DT_WIDTH = 12
 
@@ -436,17 +434,14 @@ def _no_alt_fields() -> dict:
 
 def host_tables(scene: FlatScene, bvh: BVHArrays = None,
                 light_strategy: str = "uniform", two_level: bool = None,
-                treelet_budget: tuple = None):
+                treelet_budget: tuple = None, spectral: bool = False):
     """(fields: dict of numpy arrays, SceneStatics) for a flattened scene,
     before anything touches a device. two_level forces the two-level tables
     on or off (default: built from TWO_LEVEL_MIN_BYTES of node + prim rows);
     treelet_budget=(tn, tp) overrides the treelet capacities (tests cut small
-    scenes into many treelets with it)."""
+    scenes into many treelets with it); spectral=True sets n_channels to 60
+    (the path and volpath integrators then carry 60-bin sampled spectra)."""
     t, s, m, lt = scene.triangles, scene.spheres, scene.materials, scene.lights
-    if scene.media:
-        raise NotImplementedError(
-            "media are not in the PyTorch port yet (ROADMAP.md queue 1, "
-            "item 11)")
     if bvh is None:
         bvh = build_scene_bvh(scene)
     wlo, whi = scene.world_bounds()
@@ -466,9 +461,16 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
         tn, tp = treelet_budget or (TREELET_NODES, TREELET_PRIMS)
         tla = build_treelets(wide_nodes, prim_rows, tn, tp)
 
+    # the per-interface media table (one-row dummies without media) and
+    # each prim's MediumInterface in global prim order
     n_prims = scene.prim_count
     med_in = np.full(max(n_prims, 1), -1, np.int32)
     med_out = np.full(max(n_prims, 1), -1, np.int32)
+    for lo, hi, shapes in ((0, t.count, t), (t.count, n_prims, s)):
+        if hi > lo and shapes.med_in is not None:
+            med_in[lo:hi] = shapes.med_in
+            med_out[lo:hi] = shapes.med_out
+    media, any_grid = build_media_table(scene)
 
     n_lights = lt.count
     if light_strategy == "power" and n_lights > 0:
@@ -522,11 +524,13 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
         raster_to_camera=scene.camera.raster_to_camera,
         cam_q=cam_q, cam_tr=cam_tr,
         world_lo=wlo, world_hi=whi,
-        med_sigma_a=np.zeros((1, 3), f32), med_sigma_s=np.zeros((1, 3), f32),
-        med_g=np.zeros(1, f32), med_majorant=np.ones(1, f32),
-        med_is_grid=np.zeros(1, bool), med_density=np.ones(1, f32),
-        med_dens_off=np.zeros(1, i32), med_dens_dims=np.ones((1, 3), i32),
-        med_w2m=eye.copy(), prim_med_in=med_in, prim_med_out=med_out,
+        **(media or dict(
+            med_sigma_a=np.zeros((1, 3), f32),
+            med_sigma_s=np.zeros((1, 3), f32), med_g=np.zeros(1, f32),
+            med_majorant=np.ones(1, f32), med_is_grid=np.zeros(1, bool),
+            med_density=np.ones(1, f32), med_dens_off=np.zeros(1, i32),
+            med_dens_dims=np.ones((1, 3), i32), med_w2m=eye.copy())),
+        prim_med_in=med_in, prim_med_out=med_out,
         **fourier_fields(scene.fourier_table),
     )
     sss_pack = sss_pack_rows(m)
@@ -556,7 +560,11 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
                  if ft else None),
         has_bssrdf_table=sss_pack is not None,
         spatial_lights=light_grid_cdf.shape[0] > 1,
+        n_media=len(scene.media_order or []),
         camera_medium=scene.camera_medium,
+        any_grid_media=any_grid,
+        has_med_interfaces=bool((med_in != med_out).any()),
+        n_channels=60 if spectral else 3,
         has_motion=bool(has_motion),
         cam_animated=cam.cam_to_world_end is not None,
         shutter_open=float(cam.shutter_open),
@@ -723,12 +731,13 @@ def _to_device(fields: dict, device) -> DeviceScene:
 
 def upload(scene: FlatScene, bvh: BVHArrays = None,
            light_strategy: str = "uniform", device="cuda",
-           two_level: bool = None, treelet_budget: tuple = None):
+           two_level: bool = None, treelet_budget: tuple = None,
+           spectral: bool = False):
     """Build (DeviceScene, SceneStatics) from a flattened scene on `device`.
     With device="cuda" and no card this raises; it never drops to the CPU.
-    two_level / treelet_budget: see `host_tables`."""
+    two_level / treelet_budget / spectral: see `host_tables`."""
     fields, statics = host_tables(scene, bvh, light_strategy, two_level,
-                                  treelet_budget)
+                                  treelet_budget, spectral)
     return _to_device(fields, device), statics
 
 
@@ -753,14 +762,9 @@ def from_numpy(ds_fields: dict, st_fields: dict, device="cuda"):
     which gives the same treelets in this package's layout. Its kd / RBSP /
     BSP tables (alt_flags ... alt_dirs, where its Renderer built them) are
     carried as the node rows packed from them and the prim rows. Its motion
-    deltas `prim_rows_dt` (P,9) are padded to DT_WIDTH columns. A static that
-    switches on a feature this package lacks raises."""
-    for name, (off, item) in _UNPORTED_STATICS.items():
-        if st_fields.get(name, off) != off:
-            raise NotImplementedError(
-                f"tables with {name}={st_fields[name]!r} need a feature the "
-                f"PyTorch port does not have yet (ROADMAP.md queue 1, item "
-                f"{item})")
+    deltas `prim_rows_dt` (P,9) are padded to DT_WIDTH columns. Spectral
+    transport (n_channels) and the media tables and statics come across as
+    they are."""
     statics = SceneStatics(**{k: st_fields[k] for k in SceneStatics._fields
                               if k in st_fields})
     statics = statics._replace(

@@ -34,13 +34,6 @@ from tpupt_torch.textures.textures import TextureTable, load_image
  MAT_SUBSTRATE, MAT_TRANSLUCENT, MAT_NONE, MAT_DISNEY, MAT_HAIR,
  MAT_MIX, MAT_SUBSURFACE, MAT_KDSUBSURFACE, MAT_FOURIER) = range(15)
 
-def _later(what: str, item: str):
-    """Features outside the ported slice are refused, never ignored."""
-    return NotImplementedError(
-        f"{what} is not in the PyTorch port yet (ROADMAP.md queue 1, "
-        f"item {item})")
-
-
 def _burley_d(rho, mfp):
     """Diffusion radius d from albedo + mean free path (Christensen-Burley
     2015 eq. 8: s = 1.85 - rho + 7|rho - 0.8|^3; pbrt's BSSRDF table plays
@@ -810,8 +803,6 @@ def flatten(desc: SceneDescription, scene_dir: str = ".") -> FlatScene:
                                 i2w_close * rec.object_to_world
                                 if i2w_close is not None else None)))
 
-    if desc.media:
-        raise _later("participating media", "11")
     tex_table = TextureTable.build(desc.textures, scene_dir)
     mats = _MaterialTable(desc.textures, tex_table, desc.named_materials)
     tri_chunks: List[dict] = []

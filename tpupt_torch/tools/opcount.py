@@ -5,11 +5,14 @@ counted apart (one hand-written kernel each on the card, the plain walker's
 many operations here), and their operations are left out of the totals.
 
     python -m tpupt_torch.tools.opcount scene.pbrt [--resolution WxH]
-        [--depth D]
+        [--depth D] [--spectral]
 
 Prints one JSON line: the scene's material families, the traversal calls
 of one sample, the other operations of that sample in all and without the
-view operations, and the ten most frequent.
+view operations, and the ten most frequent. The grid-medium tracking
+calls of a volpath scene (kernel K6 on the card, ops/media_tracking.py) are
+counted apart too: their number, and the non-view operations their plain
+loops dispatch here, which the card does not launch.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from tpupt_torch.integrators.path import Renderer
+from tpupt_torch.ops import media_tracking
 from tpupt_torch.scene.flatten import flatten, with_resolution
 from tpupt_torch.scene.loader import parse_file
 
@@ -40,11 +44,14 @@ class OpCounter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.counts = collections.Counter()
+        self.tracking = collections.Counter()
         self.paused = False
+        self.in_tracking = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if not self.paused:
-            self.counts[func.__name__.split(".")[0]] += 1
+            sink = self.tracking if self.in_tracking else self.counts
+            sink[func.__name__.split(".")[0]] += 1
         return func(*args, **(kwargs or {}))
 
     def totals(self) -> dict:
@@ -70,13 +77,32 @@ def count_sample(renderer: Renderer, sample_idx: int = 0) -> dict:
             counter.paused = False
             calls.append(kw.get("any_hit", False))
 
+    tracking_calls = collections.Counter()
+    wrapped = {}
+    for name in media_tracking.launches:
+        fn = wrapped[name] = getattr(media_tracking, name)
+
+        def tracked(*args, _fn=fn, _name=name, **kw):
+            counter.in_tracking = True
+            try:
+                return _fn(*args, **kw)
+            finally:
+                counter.in_tracking = False
+                tracking_calls[_name] += 1
+        setattr(media_tracking, name, tracked)
+
     renderer._isect = paused
     try:
         with torch.no_grad(), counter:
             renderer._spp(renderer.new_film(), sample_idx)
     finally:
         renderer._isect = isect
-    return {"traversal_calls": len(calls), **counter.totals()}
+        for name, fn in wrapped.items():
+            setattr(media_tracking, name, fn)
+    plain = sum(c for k, c in counter.tracking.items() if k not in _VIEWS)
+    return {"traversal_calls": len(calls), **counter.totals(),
+            "tracking_calls": dict(tracking_calls),
+            "tracking_plain_non_view_ops": plain}
 
 
 def main(argv=None) -> int:
@@ -84,6 +110,7 @@ def main(argv=None) -> int:
     ap.add_argument("scene")
     ap.add_argument("--resolution", default="32x32")
     ap.add_argument("--depth", type=int, default=None)
+    ap.add_argument("--spectral", action="store_true")
     a = ap.parse_args(argv)
     w, h = (int(x) for x in a.resolution.lower().split("x"))
     sc = with_resolution(flatten(parse_file(a.scene),
@@ -91,7 +118,7 @@ def main(argv=None) -> int:
     if a.depth is not None:
         sc = dataclasses.replace(sc, integrator=dataclasses.replace(
             sc.integrator, max_depth=a.depth))
-    r = Renderer(sc, device="cpu")
+    r = Renderer(sc, device="cpu", spectral=a.spectral)
     print(json.dumps({"scene": a.scene, "resolution": [w, h],
                       "batches": r.n_batches,
                       "mat_features": sorted(r.st.mat_features),

@@ -2,13 +2,15 @@
 src/main/pbrt.cpp):
 
     python -m tpupt_torch.tools.render scene.pbrt [--spp N]
-        [--resolution WxH] [--quick] [--cpu] [-o out.{exr,pfm,png}]
+        [--resolution WxH] [--quick] [--cpu] [--spectral]
+        [-o out.{exr,pfm,png}]
         [--quiet] [--stats] [--cropwindow X0 X1 Y0 Y1]
         [--accelerator bvh|kdtree|rbsp|bsp...] [--dumptree] [--writestats]
         [--cat | --toply] [--profile DIR] [--logfile F] [--loglevel L]
 
-Parses and flattens the scene, uploads it, renders with the path integrator
-and writes the image. It runs on the CUDA device unless --cpu is given, and
+Parses and flattens the scene, uploads it, renders with the path or volpath
+integrator and writes the image; --spectral renders with 60-bin sampled
+spectra (PBRT_SAMPLED_SPECTRUM) instead of RGB triples. It runs on the CUDA device unless --cpu is given, and
 fails when there is none: it never drops to the CPU by itself.
 
 The flags mirror the reference CLI (pbrt.cpp:47-71) as the JAX package's
@@ -93,6 +95,9 @@ def main(argv=None) -> int:
                     help="1/4 resolution, 1 spp (pbrt --quick)")
     ap.add_argument("--cpu", action="store_true",
                     help="run the plain PyTorch path on the CPU")
+    ap.add_argument("--spectral", action="store_true",
+                    help="60-bin sampled-spectrum transport "
+                         "(PBRT_SAMPLED_SPECTRUM, spectrum.h:289)")
     ap.add_argument("--quiet", action="store_true")
     ap.add_argument("--stats", action="store_true",
                     help="print render statistics (pbrt PrintStats)")
@@ -160,7 +165,8 @@ def main(argv=None) -> int:
               f"quadrics, {scene.lights.count} lights")
     t0 = time.time()
     renderer = Renderer(scene, device="cpu" if args.cpu else "cuda",
-                        collect_stats=args.stats or args.writestats)
+                        collect_stats=args.stats or args.writestats,
+                        spectral=args.spectral)
     t1 = time.time()
     spp = args.spp or scene.sampler.spp
     with (tlog.profile_to(args.profile) if args.profile

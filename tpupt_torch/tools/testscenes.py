@@ -395,41 +395,21 @@ def materials_museum(out_dir: str, n_hairs: int = 256, seed: int = 11,
     materials_museum.pbrt (and one PLY a material) beside museum.pbrt and
     returns its path."""
     import os
-    import re
 
     from tpupt_torch.materials.fourier import write_bsdf_file
-    from tpupt_torch.scene.plyio import read_ply, write_ply
-    from tpupt_torch.tools import genscene
 
-    path = genscene.museum(out_dir, **size)
-    grid = size.get("grid", 8)
-    seg, rings = size.get("seg", 96), size.get("rings", 48)
-    mesh = read_ply(os.path.join(out_dir, "museum.ply"))
-    n_statues = grid * grid
-    faces = mesh["indices"].reshape(n_statues, -1, 3)
-    if faces.shape[1] != 2 * seg * rings:
-        raise ValueError("the museum's statues changed: cannot split them")
     write_bsdf_file(os.path.join(out_dir, "statue.bsdf"),
                     fourier_test_table())
     mats = MATERIALS_MUSEUM_MATERIALS
-    statue_lines = [
+    head = [
         'MakeNamedMaterial "statue_plastic" "string type" "plastic" '
         '"rgb Kd" [0.6 0.2 0.15] "rgb Ks" [0.4 0.4 0.4] "float roughness" '
         '[0.05]',
         'MakeNamedMaterial "statue_metal" "string type" "metal" '
         '"float roughness" [0.15]']
-    for k, line in enumerate(mats):
-        ids = np.arange(k, n_statues, len(mats))
-        if not len(ids):
-            continue
-        name = f"statues_{k}.ply"
-        write_ply(os.path.join(out_dir, name), mesh["P"],
-                  faces[ids].reshape(-1, 3), N=mesh.get("N"))
-        statue_lines += [line,
-                         f'Shape "plymesh" "string filename" ["{name}"]']
     # the hair tuft: curves rising from the floor in front of the statues
     rng = np.random.default_rng(seed)
-    front = -(grid * 3.0) / 2.0 - 0.5
+    front = -(size.get("grid", 8) * 3.0) / 2.0 - 0.5
     hair = ['Material "hair" "float eumelanin" [0.8] "float beta_m" [0.25] '
             '"float beta_n" [0.3]']
     for _ in range(n_hairs):
@@ -442,11 +422,13 @@ def materials_museum(out_dir: str, n_hairs: int = 256, seed: int = 11,
         p_str = " ".join(f"{v:.4f}" for c in cps for v in c)
         hair.append(f'Shape "curve" "point P" [{p_str}] "float width" '
                     '[0.03] "string type" "flat"')
-    text = open(path).read()
+    text = _split_statues(
+        out_dir, len(mats),
+        lambda k, name, P, faces: [
+            mats[k], f'Shape "plymesh" "string filename" ["{name}"]'],
+        head=head, tail=hair, **size)
     text = text.replace('Sampler "halton"', 'Sampler "sobol"')
-    text, n = re.subn(r'Material "plastic"[^\n]*\nShape "plymesh"[^\n]*\n',
-                      "\n".join(statue_lines + hair) + "\n", text)
-    if n != 1 or 'Sampler "sobol"' not in text:
+    if 'Sampler "sobol"' not in text:
         raise ValueError("the museum's scene file changed: cannot dress it")
     dst = os.path.join(out_dir, "materials_museum.pbrt")
     with open(dst, "w") as f:
@@ -562,3 +544,190 @@ def realistic_museum(out_dir: str, focus: float = None,
     with open(dst, "w") as f:
         f.write(text)
     return dst
+
+
+# saturated rows of the spectral museum: under spectral transport their
+# products with the blackbody light are metamer products, and some samples
+# come out of gamut
+SPECTRAL_MUSEUM_MATERIALS = (
+    'Material "matte" "rgb Kd" [0.85 0.04 0.03]',
+    'Material "matte" "rgb Kd" [0.03 0.8 0.06]',
+    'Material "plastic" "rgb Kd" [0.04 0.06 0.85] "rgb Ks" [0.3 0.3 0.3] '
+    '"float roughness" [0.1]',
+    'Material "plastic" "rgb Kd" [0.8 0.7 0.02] "rgb Ks" [0.25 0.25 0.25] '
+    '"float roughness" [0.05]',
+    'Material "matte" "rgb Kd" [0.7 0.02 0.75]',
+    'Material "matte" "rgb Kd" [0.02 0.7 0.8]',
+)
+
+
+def _split_statues(out_dir: str, groups: int, lines_for, head=(),
+                   tail=(), **size) -> str:
+    """The scene text of tools/genscene.py's museum (`size`: grid, seg,
+    rings; written to out_dir) with its one statue mesh replaced by one PLY
+    a group of statues (group k: statues k, k + groups, ...), each group's
+    lines from `lines_for(k, ply name, vertices, its faces)` around its
+    `Shape "plymesh"` line, after the lines `head` and before `tail`."""
+    import os
+    import re
+
+    from tpupt_torch.scene.plyio import read_ply, write_ply
+    from tpupt_torch.tools import genscene
+
+    path = genscene.museum(out_dir, **size)
+    grid = size.get("grid", 8)
+    mesh = read_ply(os.path.join(out_dir, "museum.ply"))
+    n_statues = grid * grid
+    faces = mesh["indices"].reshape(n_statues, -1, 3)
+    if faces.shape[1] != 2 * size.get("seg", 96) * size.get("rings", 48):
+        raise ValueError("the museum's statues changed: cannot split them")
+    lines = list(head)
+    for k in range(groups):
+        ids = np.arange(k, n_statues, groups)
+        if not len(ids):
+            continue
+        name = f"statues_{k}.ply"
+        write_ply(os.path.join(out_dir, name), mesh["P"],
+                  faces[ids].reshape(-1, 3), N=mesh.get("N"))
+        lines += lines_for(k, name, mesh["P"], faces[ids])
+    text, n = re.subn(r'Material "plastic"[^\n]*\nShape "plymesh"[^\n]*\n',
+                      "\n".join(lines + list(tail)) + "\n", open(path).read())
+    if n != 1:
+        raise ValueError("the museum's scene file changed: cannot split it")
+    return text
+
+
+def spectral_museum(out_dir: str, temperature: float = 3200.0,
+                    **size) -> str:
+    """tools/genscene.py's museum (`size`: grid, seg, rings; the same
+    triangles) for spectral transport: its statues in the saturated matte
+    and plastic rows of SPECTRAL_MUSEUM_MATERIALS (statue i takes row
+    i % 6), its floor a saturated orange, and its area light a blackbody
+    of `temperature` K. Writes spectral_museum.pbrt beside museum.pbrt and
+    returns its path; render it with `Renderer(..., spectral=True)` or the
+    CLI's --spectral."""
+    import os
+
+    mats = SPECTRAL_MUSEUM_MATERIALS
+
+    text = _split_statues(
+        out_dir, len(mats),
+        lambda k, name, P, faces: [
+            mats[k], f'Shape "plymesh" "string filename" ["{name}"]'],
+        **size)
+    old_light, old_floor = ('"rgb L" [14 13 11]',
+                            'Material "matte" "rgb Kd" [0.55 0.52 0.48]')
+    if old_light not in text or old_floor not in text:
+        raise ValueError("the museum's scene file changed: cannot dress it")
+    text = text.replace(old_light, f'"blackbody L" [{temperature:g} 16]')
+    text = text.replace(old_floor, 'Material "matte" "rgb Kd" [0.8 0.3 0.02]')
+    dst = os.path.join(out_dir, "spectral_museum.pbrt")
+    with open(dst, "w") as f:
+        f.write(text)
+    return dst
+
+
+def plume_density(res: int, seed: int = 7) -> np.ndarray:
+    """(res, res, res) float32 density of a smoke plume in the unit cube,
+    made with numpy from `seed`: a column rising along z that widens and
+    thins with height, modulated by trilinearly upsampled value noise."""
+    rng = np.random.default_rng(seed)
+    c = (np.arange(res) + 0.5) / res
+    z, y, x = np.meshgrid(c, c, c, indexing="ij")
+    width = 0.12 + 0.22 * z
+    r2 = (x - 0.5 - 0.08 * np.sin(5.0 * z)) ** 2 + (y - 0.5) ** 2
+    column = np.exp(-r2 / (2.0 * width ** 2)) * (1.0 - 0.6 * z)
+    lattice = rng.random((9, 9, 9))
+    g = c * 8.0
+    i0 = np.minimum(g.astype(int), 7)
+    f = g - i0
+    noise = 0.0
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                w = (np.where(dz, f, 1 - f)[:, None, None]
+                     * np.where(dy, f, 1 - f)[None, :, None]
+                     * np.where(dx, f, 1 - f)[None, None, :])
+                noise = noise + w * lattice[np.ix_(i0 + dz, i0 + dy, i0 + dx)]
+    return (column * (0.4 + 1.2 * noise)).astype(np.float32)
+
+
+def _box_mesh(lo, hi) -> str:
+    """A closed box's trianglemesh lines, faces wound outward."""
+    (x0, y0, z0), (x1, y1, z1) = lo, hi
+    p = [(x0, y0, z0), (x1, y0, z0), (x1, y1, z0), (x0, y1, z0),
+         (x0, y0, z1), (x1, y0, z1), (x1, y1, z1), (x0, y1, z1)]
+    idx = (0, 2, 1, 0, 3, 2, 4, 5, 6, 4, 6, 7, 0, 1, 5, 0, 5, 4,
+           1, 2, 6, 1, 6, 5, 2, 3, 7, 2, 7, 6, 3, 0, 4, 3, 4, 7)
+    p_str = " ".join(f"{v:g}" for q in p for v in q)
+    return (f'Shape "trianglemesh" "point P" [{p_str}] "integer indices" '
+            f'[{" ".join(map(str, idx))}]')
+
+
+FOG_ROOM = ('MakeNamedMedium "room" "string type" "homogeneous" '
+            '"rgb sigma_a" [0.004 0.005 0.007] '
+            '"rgb sigma_s" [0.018 0.02 0.024] "float g" [0.2]')
+FOG_TINT = ('MakeNamedMedium "tint" "string type" "homogeneous" '
+            '"rgb sigma_a" [0.5 0.15 0.04] "rgb sigma_s" [0.08 0.08 0.08] '
+            '"float g" [0.0]')
+
+
+def fog_museum(out_dir: str, grid_res: int = 128, seed: int = 7,
+               **size) -> str:
+    """tools/genscene.py's museum (`size`: grid, seg, rings) under the
+    volpath integrator with three media: a homogeneous fog ("room") that
+    the camera and the room sit in; a grid medium ("plume") of
+    grid_res^3 float32 density made from `seed` (`plume_density`) inside a
+    null-material box in front of the statues, whose MediumInterface is a
+    transition (plume inside, room outside); and a homogeneous coloured
+    medium ("tint") inside statue 0, which is glass. Writes fog_museum.pbrt
+    beside museum.pbrt and returns its path."""
+    import os
+
+    grid = size.get("grid", 8)
+    pitch = 3.0
+
+    def lines_for(k, name, P, faces):
+        shape = f'Shape "plymesh" "string filename" ["{name}"]'
+        if k:
+            return [_MUSEUM_STATUE, shape]
+        # statue 0 in glass around the tint medium: inside is the side its
+        # raw normals point away from (medium.h), so check the winding
+        tri = P[faces.reshape(-1, 3)]
+        n = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+        out = float(np.sum(n * (tri.mean(1) - P[faces].reshape(-1, 3)
+                                .mean(0)))) > 0.0
+        iface = '"tint" "room"' if out else '"room" "tint"'
+        return ["AttributeBegin", f"MediumInterface {iface}",
+                'Material "glass" "float index" [1.5]', shape, "AttributeEnd"]
+    text = _split_statues(out_dir, 2, lines_for, **size)
+    half = grid * pitch / 2
+    lo = (-0.25 * half - 0.4, -half - 2.6, 0.01)
+    hi = (0.25 * half + 0.4, -half - 0.4, 0.3 * half + 2.5)
+    dens = plume_density(grid_res, seed)
+    d_str = " ".join(f"{v:.4g}" for v in dens.reshape(-1))
+    plume = (
+        'MakeNamedMedium "plume" "string type" "heterogeneous" '
+        '"rgb sigma_a" [0.15 0.15 0.15] "rgb sigma_s" [1.2 1.2 1.2] '
+        '"float g" [0.4] '
+        f'"integer nx" [{grid_res}] "integer ny" [{grid_res}] '
+        f'"integer nz" [{grid_res}] "point p0" [{lo[0]:g} {lo[1]:g} {lo[2]:g}] '
+        f'"point p1" [{hi[0]:g} {hi[1]:g} {hi[2]:g}] "float density" [{d_str}]')
+    world = "\n".join([
+        "WorldBegin", 'MediumInterface "room" "room"', plume, FOG_TINT,
+        "AttributeBegin", 'MediumInterface "plume" "room"', 'Material "none"',
+        _box_mesh(lo, hi), "AttributeEnd"])
+    if "WorldBegin" not in text or 'Integrator "path"' not in text:
+        raise ValueError("the museum's scene file changed: cannot fog it")
+    text = text.replace("WorldBegin", world, 1)
+    text = text.replace('Integrator "path"', 'Integrator "volpath"')
+    text = text.replace('Camera "perspective"', FOG_ROOM
+                        + '\nMediumInterface "" "room"\nCamera "perspective"')
+    dst = os.path.join(out_dir, "fog_museum.pbrt")
+    with open(dst, "w") as f:
+        f.write(text)
+    return dst
+
+
+_MUSEUM_STATUE = ('Material "plastic" "rgb Kd" [0.32 0.30 0.34] '
+                  '"rgb Ks" [0.35 0.35 0.35] "float roughness" [0.08]')
