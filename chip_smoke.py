@@ -22,7 +22,7 @@ which runs kernels `bin_rays` and `walk_pairs` and, for rays whose treelet
 list overflowed, `traverse_treelets`.
 The launch counts show that each render went through its kernels, and each
 render is compared with one made by the kernels' plain versions (on a
-128x128 crop in the middle of the image: the plain walkers take a second or
+64x64 crop in the middle of the image: the plain walkers take a second or
 more a traversal). K1, K2 and K3 are also held against their plain versions
 on batches of 98 % dead rays, of dead rays only, of one ray and of 131,073
 rays; at the main shape every kernel prints the wrapper call and the
@@ -87,13 +87,23 @@ same phase, each against the plain versions on the crop; holds K6 against
 its plain loops and times it on every call of the fog museum's middle
 batch; and takes a 1-spp `value_and_grad` of each (the film linear in
 light_L).
+The `integrators` phase renders the small museum through K1 at 1024x1024
+and depth 5 under the direct-lighting ("all"), Whitted, ambient-occlusion
+and BDPT integrators (1 spp each, BDPT's t == 1 strategies into the film's
+splats), with MLT (`MLTRenderer`: one batch of bootstrap paths a depth, one
+mutation a pixel) and with SPPM (`SPPMRenderer`: one iteration of one
+photon a pixel), each with the launch counts set to 0 just before and read
+just after and held to the calls its loops make; before them, every K1
+call of one BDPT batch, one MLT mutation step and one SPPM photon chunk is
+held bit for bit against the plain walker.
 There is no fallback: without a CUDA device, without the `tpupt_torch`
 package beside it, with a kernel that does not build, launch or agree, or
 with any failed check, it exits with a code other than 0 and prints no
 result line.
 
 Output: one JSON object per phase (`env`, `kernels`, `main_path`,
-`gradients`, `appearance`, `materials`, `motion`, `media`), then the card's name and power
+`gradients`, `appearance`, `materials`, `motion`, `media`, `integrators`),
+then the card's name and power
 limit, the `{"kernels": [...]}` line, and last `{"ok": true, "device":
 {...}}`.
 """
@@ -154,8 +164,8 @@ MUSEUM_1K = dict(grid=2, seg=16, rings=8)        # 1,028 triangles
 SPP_1M = 1
 SPP_65K = 1
 # the plain walkers render this crop of the image, the kernels too for the
-# comparison: 128x128 pixels in the middle, one batch a sample
-PLAIN_CROP = (0.4375, 0.5625, 0.4375, 0.5625)
+# comparison: 64x64 pixels in the middle, one batch a sample
+PLAIN_CROP = (0.46875, 0.53125, 0.46875, 0.53125)
 # the gradients phase: value_and_grad of bench.py's loss, sum(film.rgb), with
 # respect to the four tables it differentiates, 1 sample on the small museum
 # and 1 on the 1M one; the film is linear in light_L, so
@@ -243,6 +253,16 @@ K6_REPLACES = {
     "sample_distance_grid": "tpupt/media/media.py:379 (sample_distance_"
                             "lane's delta-tracking loop, XLA; no Pallas "
                             "kernel)"}
+# the integrators phase: the small museum at MAIN_RES and its depth (5)
+# through K1 under the direct-lighting ("all"), Whitted, ambient-occlusion
+# (16 samples: tpupt's cap) and BDPT integrators, 1 spp each; MLT with one
+# renderer batch of bootstrap paths a depth and MLT_MUTATIONS mutations a
+# pixel; SPPM, SPPM_ITERATIONS iterations of one photon a pixel. Through a
+# checking `isect`, every K1 call of one BDPT batch, one MLT mutation step
+# and one SPPM photon chunk is held bit for bit against the plain walker
+MLT_MUTATIONS = 1
+SPPM_ITERATIONS = 1
+INTEGRATORS = ("directlighting", "whitted", "ambientocclusion", "bdpt")
 # kd-tree, restricted BSP with 3 / 7 / 13 directions, one tree with a
 # direction per node and one with kd nodes mixed in: (name, nbDirections)
 KD_TREES = [("kdtree", None), ("rbsp", 3), ("rbsp", 7), ("rbsp", 13),
@@ -1188,6 +1208,11 @@ def main(argv) -> int:
                 with_profile)
     emit({"phase": "media", **med})
 
+    # ---- integrators: direct lighting, Whitted, AO, BDPT, MLT and SPPM on
+    # the small museum through K1
+    integ = integrators(dev, (sc65, tables65))
+    emit({"phase": "integrators", **integ})
+
     kernels = []
     # K1 at the shape where the main path launches it: the 63,558-triangle
     # museum's secondary rays (its 1M-museum figures beside them)
@@ -1236,6 +1261,9 @@ def main(argv) -> int:
             kernels[-1]["media_fwd_bwd_launches"] = {
                 "spectral_museum": sm["gradients"]["launches"][kind],
                 "fog_museum": fm["gradients"]["launches"][kind]}
+            kernels[-1]["integrators_launches"] = {
+                k: v["launches"][kind] for k, v in integ.items()
+                if isinstance(v, dict) and "launches" in v}
             ms_ = motion_shape
             kernels[-1]["motion_launches"] = mot["launches"][
                 "traverse_wide_motion"]
@@ -3148,6 +3176,208 @@ def media(dev, static_museum, fog, with_profile) -> dict:
             "image_mean_rgb": [float(x) for x in img_f.reshape(-1, 3).mean(0)],
             **plain_f, "k6_at_main_shape": main_shape,
             "gradients": grads_f, **profiled}}
+
+
+def checking_wide(tag, calls):
+    """K1's wrapper, each call run beside the plain walker on the same
+    inputs and held to the bit (valid, prim; t, b1, b2, p_obj of the hits;
+    the counters when the caller asks for them); fails the run otherwise.
+    Appends one record a call to `calls`."""
+    plain = plain_traversal("traverse_wide")
+
+    def isect(ds_, st_, o_, d_, tmax_, any_hit=False, with_stats=True, **kw):
+        out = tw.intersect_wide_cuda(ds_, st_, o_, d_, tmax_, any_hit=any_hit,
+                                     with_stats=with_stats, **kw)
+        ref = plain(ds_, st_, o_, d_, tmax_, any_hit=any_hit, **kw)
+        (hk, sk), (hp, sp) = out, ref
+        hit = hp.valid & hk.valid
+        names = ["valid", "prim"] + [f"{f}_of_hits" for f in
+                                     ("t", "b1", "b2", "p_obj")]
+        kern = [hk.valid, hk.prim] + [getattr(hk, f)[hit] for f in
+                                      ("t", "b1", "b2", "p_obj")]
+        pl = [hp.valid, hp.prim] + [getattr(hp, f)[hit] for f in
+                                    ("t", "b1", "b2", "p_obj")]
+        if with_stats:
+            names += list(trav.TraversalStats._fields)
+            kern += list(sk)
+            pl += list(sp)
+        err = check_bits(f"{tag}/call {len(calls)}", names, kern, pl)
+        calls.append({"any_hit": any_hit, "rays": int(o_.shape[0]),
+                      "live": int((tmax_ > 0).sum()), "max_abs_err": err})
+        return out
+    return isect
+
+
+def counted(fn, per_call_k1: int):
+    """Run `fn` with the launch counts set to 0 just before and read just
+    after, timed on the host's clock around a device sync; fails the run
+    unless K1 launched `per_call_k1` times and no other kernel launched.
+    Returns (fn's result, seconds, launches, {peak allocated bytes, bytes
+    allocated before})."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    zero_launches()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    sec = time.time() - t0
+    counts = launch_counts()
+    check_stack_depths()
+    for k, c in counts.items():
+        want = per_call_k1 if k == "traverse_wide" else 0
+        if c != want:
+            fail(f"integrators phase launched {k} {c} times, expected {want}")
+    return out, sec, counts, {
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "allocated_bytes_before": before}
+
+
+def image_stats(img, tag):
+    if img.shape != (MAIN_RES, MAIN_RES, 3):
+        fail(f"{tag}: image shape {img.shape}")
+    finite_share = float(np.isfinite(img).all(-1).mean())
+    mean_lum = float((img @ np.array([0.212671, 0.715160, 0.072169])).mean())
+    if finite_share != 1.0 or not mean_lum > 0.0:
+        fail(f"{tag}: finite share {finite_share}, mean luminance {mean_lum}")
+    return {"finite_pixel_share": finite_share, "mean_luminance": mean_lum}
+
+
+def integrators(dev, static_museum) -> dict:
+    """The integrators phase: the small museum (`static_museum` = (scene,
+    tables), single-level tables: K1) at MAIN_RES and depth 5 under each of
+    INTEGRATORS (1 spp), MLT (one batch of bootstrap paths a depth,
+    MLT_MUTATIONS mutations a pixel) and SPPM (SPPM_ITERATIONS iterations,
+    one photon a pixel), each through its user entry point (`Renderer.
+    render` / `image`, `MLTRenderer.render`, `SPPMRenderer.render`) with
+    the launch counts set to 0 just before and read just after, its K1
+    launches held to the count its loops make. Before them, every K1 call
+    of one BDPT batch, one MLT mutation step and one SPPM photon chunk runs
+    through `checking_wide` (bit for bit against the plain walker)."""
+    from tpupt_torch.integrators.mlt import MLTRenderer
+    from tpupt_torch.integrators.sppm import SPPMRenderer
+
+    sc65, tables65 = static_museum
+    depth = sc65.integrator.max_depth
+    n_lights = tables65[1].n_lights
+    out = {"scene": "tools/genscene.py museum", **MUSEUM_65K,
+           "triangles": tables65[1].n_tris, "lights": n_lights,
+           "resolution": [MAIN_RES, MAIN_RES], "max_depth": depth}
+    t_phase = time.time()
+
+    def renderer(name, **integ):
+        sc = dataclasses.replace(sc65, integrator=dataclasses.replace(
+            sc65.integrator, name=name, **integ))
+        return Renderer(sc, device=dev, tables=tables65)
+
+    # K1 calls a batch: a direct-lighting vertex makes a closest hit, and a
+    # shadow ray and a BSDF-sampled ray for each light; AO a closest hit and
+    # 16 occlusion rays; BDPT 2D + 1 walk steps and D (s == 1) +
+    # (D - 1) D / 2 (s >= 2) + D (t == 1) connections
+    bdpt_calls = (2 * depth + 1) + depth + (depth - 1) * depth // 2 + depth
+    calls = {"directlighting": depth * (1 + 2 * n_lights),
+             "whitted": depth * (1 + 2 * n_lights),
+             "ambientocclusion": 1 + 16, "bdpt": bdpt_calls}
+    checked = {}
+    for name in INTEGRATORS:
+        r = renderer(name, strategy="all") if name == "directlighting" \
+            else renderer(name)
+        if name == "bdpt":
+            # every K1 call of the middle batch, against the plain walker
+            rec = []
+            r._isect = checking_wide("integrators/bdpt", rec)
+            with torch.no_grad():
+                r._step(r.new_film(), 0, r.n_batches // 2)
+            r._isect = tw.intersect_wide_cuda
+            if len(rec) != bdpt_calls:
+                fail(f"the checked BDPT batch made {len(rec)} K1 calls, "
+                     f"expected {bdpt_calls}")
+            checked["bdpt_batch"] = rec
+        else:
+            warm_up(r)
+        film, sec, counts, peak = counted(
+            lambda: r.render(spp=1), calls[name] * r.n_batches)
+        img = r.image(film)
+        out[name] = {"ms_per_spp": sec * 1e3, "launches": counts,
+                     "k1_calls_per_batch": calls[name], **peak,
+                     **image_stats(img, name),
+                     **({"splat_sum": float(film.splat.sum())}
+                        if name == "bdpt" else {})}
+        del film, r
+
+    # ---- MLT: one mutation step through the checking isect, then the
+    # render (the bootstrap: one batch a depth)
+    r = renderer("mlt")
+    mr = MLTRenderer(r, n_bootstrap=r.batch * (depth + 1))
+    rec = []
+    with torch.no_grad():
+        gen = np.random.default_rng(1)
+        u = torch.from_numpy(gen.random((mr.n, mr.n_dims),
+                                        np.float32)).to(dev)
+        dep = torch.from_numpy(gen.integers(0, depth + 1, mr.n)
+                               .astype(np.int32)).to(dev)
+        L0, pr0 = mr.eval_path(u, dep)
+        r._isect = checking_wide("integrators/mlt_step", rec)
+        mr.step(u, dep, L0, pr0, torch.zeros((MAIN_RES * MAIN_RES, 3),
+                                             device=dev), 12345)
+        r._isect = tw.intersect_wide_cuda
+    if len(rec) != bdpt_calls:
+        fail(f"the checked MLT step made {len(rec)} K1 calls, expected "
+             f"{bdpt_calls}")
+    checked["mlt_step"] = rec
+    n_steps = max(MLT_MUTATIONS * MAIN_RES * MAIN_RES // mr.n, 1)
+    evals = (depth + 1) * (mr.n_bootstrap // mr.n) + 1 + n_steps
+    img, sec, counts, peak = counted(
+        lambda: mr.render(mutations_per_pixel=MLT_MUTATIONS),
+        evals * bdpt_calls)
+    out["mlt"] = {"s": sec, "bootstrap_s": mr.seconds["bootstrap"],
+                  "chains_s": mr.seconds["chains"], "steps": n_steps,
+                  "s_per_step": mr.seconds["chains"] / n_steps,
+                  "chains": mr.n, "bootstrap_per_depth": mr.n_bootstrap,
+                  "mutations_per_pixel": MLT_MUTATIONS, "b": mr.b,
+                  "launches": counts, "k1_calls_per_eval": bdpt_calls,
+                  "evals": evals, **peak,
+                  **image_stats(img, "mlt")}
+    del mr, r
+
+    # ---- SPPM: one photon chunk through the checking isect, then the
+    # render
+    r = renderer("sppm")
+    sr = SPPMRenderer(r)
+    rec = []
+    with torch.no_grad():
+        vp = sr.camera_pass(0)
+        radius = torch.full((sr.npix_pad,), sr.r0, device=dev)
+        cell = torch.amax(radius) * 1.0001
+        n_photons = sr.n_photons
+        sr.n_photons = r.batch
+        r._isect = checking_wide("integrators/sppm_photon_chunk", rec)
+        sr.photon_pass(0, vp, radius, r.ds.world_lo - 2 * cell, cell)
+        r._isect = tw.intersect_wide_cuda
+        sr.n_photons = n_photons
+        del vp
+    if len(rec) != depth:
+        fail(f"the checked SPPM photon chunk made {len(rec)} K1 calls, "
+             f"expected {depth}")
+    checked["sppm_photon_chunk"] = rec
+    chunks = -(-sr.n_photons // r.batch)
+    sppm_calls = SPPM_ITERATIONS * (2 * depth * r.n_batches + depth * chunks)
+    img, sec, counts, peak = counted(
+        lambda: sr.render(n_iterations=SPPM_ITERATIONS), sppm_calls)
+    out["sppm"] = {"s": sec, "s_per_iteration": sec / SPPM_ITERATIONS,
+                   "iterations": SPPM_ITERATIONS,
+                   "photons_per_iteration": sr.n_photons,
+                   "photon_chunks": chunks, "overflow": sr.overflow,
+                   "launches": counts, **peak,
+                   **image_stats(img, "sppm")}
+    del sr, r
+    out["checked_k1_calls"] = {
+        k: {"calls": len(v), "any_hit_calls": sum(c["any_hit"] for c in v),
+            "rays": v[0]["rays"], "live_rays": sum(c["live"] for c in v),
+            "max_abs_err": max(c["max_abs_err"] for c in v)}
+        for k, v in checked.items()}
+    out["phase_s"] = round(time.time() - t_phase, 1)
+    return out
 
 
 if __name__ == "__main__":

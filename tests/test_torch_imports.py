@@ -208,3 +208,30 @@ def test_the_spectral_and_media_modules_are_among_them():
     for src in ("tpupt_torch/csrc/media_tracking.cu",
                 "tpupt_torch/core/cie_data.npz"):
         assert os.path.exists(os.path.join(ROOT, src)), src
+
+
+def test_the_integrator_modules_are_among_them():
+    """The other integrators: direct lighting / Whitted / AO, BDPT, MLT and
+    SPPM import without a card and without jax or tpupt, and the film
+    has its splats."""
+    names = set(_module_names())
+    assert {"tpupt_torch.integrators.direct", "tpupt_torch.integrators.bdpt",
+            "tpupt_torch.integrators.mlt",
+            "tpupt_torch.integrators.sppm"} <= names
+    code = (
+        "import sys\n"
+        "from tpupt_torch.integrators.direct import (direct_lighting_li, "
+        "whitted_li, ao_li)\n"
+        "from tpupt_torch.integrators.bdpt import bdpt_li, sample_le\n"
+        "from tpupt_torch.integrators.mlt import MLTRenderer, PSSSampler\n"
+        "from tpupt_torch.integrators.sppm import SPPMRenderer\n"
+        "from tpupt_torch.film.film import add_splats\n"
+        "from tpupt_torch.integrators.path import GRADIENT_INTEGRATORS\n"
+        "assert GRADIENT_INTEGRATORS == ('path', 'volpath')\n"
+        "print('JAX', any(m.split('.')[0] in ('jax', 'jaxlib', 'tpupt') "
+        "for m in sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "JAX False" in out.stdout

@@ -199,8 +199,15 @@ def test_renderer_refuses_unported_configurations(what, tmp_path, monkeypatch):
     _, sc = _scenes("smoke", tmp_path)
     refusal = pytest.raises(NotImplementedError, match="ROADMAP")
     if what == "integrator":
+        # the other integrators render (tests/test_torch_direct.py,
+        # test_torch_bdpt.py, ...); what is refused is their gradients
         sc = dataclasses.replace(
             sc, integrator=dataclasses.replace(sc.integrator, name="bdpt"))
+        r = Renderer(sc, device="cpu")
+        with refusal:
+            r.value_and_grad(lambda f: f.rgb.sum(),
+                             {"light_L": r.ds.light_L})
+        return
     elif what == "accelerator":
         # the kd / RBSP / BSP accelerators render; what is refused is a tree
         # deeper than the traversal stack

@@ -159,7 +159,8 @@ def test_cuda_device_without_card_raises(tmp_path):
 # each feature the port still refuses: (scene lines, the step that raises,
 # the words that begin its item in ROADMAP.md's queue 1)
 _UNPORTED = {
-    "integrator": ("", "renderer", "Other integrators"),
+    # the other integrators render; their gradients are refused
+    "integrator": ("", "training step under bdpt", "Other integrators"),
     "mesh": ("", "training step on two devices", "Multi-GPU"),
     "medium_gradients": ('MakeNamedMedium "fog" "string type" "homogeneous"',
                          "value_and_grad of a medium table",
@@ -186,6 +187,15 @@ _PORTED = {
     "volpath": ('MakeNamedMedium "fog" "string type" "homogeneous" '
                 '"rgb sigma_a" [0.05 0.05 0.05] "rgb sigma_s" [0.1 0.1 0.1]',
                 'Integrator "volpath"'),
+    # the other integrators (queue 1, item 12), through Renderer; mlt and
+    # sppm estimate with the path integrator there (their drivers are
+    # integrators/mlt.py and sppm.py)
+    "bdpt": ("", 'Integrator "bdpt"'),
+    "mlt": ("", 'Integrator "mlt"'),
+    "sppm": ("", 'Integrator "sppm"'),
+    "directlighting": ("", 'Integrator "directlighting"'),
+    "whitted": ("", 'Integrator "whitted"'),
+    "ambientocclusion": ("", 'Integrator "ambientocclusion"'),
 }
 
 
@@ -205,8 +215,10 @@ def _roadmap_item(words: str) -> int:
 
 @pytest.mark.parametrize("feature", list(_UNPORTED))
 def test_unported_features_raise_not_implemented(feature):
-    """Each feature the port does not render yet raises where it is met,
-    naming the ROADMAP.md queue 1 item that will bring it."""
+    """Each feature the port does not have yet (a render, or the gradients
+    of one: those of the integrators other than path and volpath) raises
+    where it is met, naming the ROADMAP.md queue 1 item that will bring
+    it."""
     from tpupt_torch.integrators.path import Renderer
     from tpupt_torch.parallel.mesh import train_step_fn
 
@@ -231,8 +243,8 @@ WorldEnd
         return
     sc = flatten(parse_string(txt))
     with refusal:
-        if where == "renderer":
-            Renderer(sc, device="cpu")
+        if feature == "integrator":
+            train_step_fn(sc, None, np.zeros((8, 8, 3)), device="cpu")
         elif feature == "medium_gradients":
             r = Renderer(sc, device="cpu")
             r.value_and_grad(lambda f: f.rgb.sum(),
@@ -260,8 +272,8 @@ def test_failed_native_build_raises(monkeypatch, tmp_path):
 def test_formerly_unported_features_render(feature, tmp_path):
     """The scene lines of each feature the port refused before it was
     ported (the Disney, mix, hair, Fourier and subsurface materials, the
-    sobol sampler, the realistic camera, motion blur, media and the volpath
-    integrator) flatten, upload and render on the CPU, with finite pixels,
+    sobol sampler, the realistic camera, motion blur, media, the volpath
+    integrator and the other integrators) flatten, upload and render on the CPU, with finite pixels,
     under a distant light."""
     from tpupt_torch.integrators.path import Renderer
 
@@ -301,5 +313,7 @@ WorldEnd
         assert (st.n_media, st.camera_medium) == (1, 0)
         assert (sc.integrator.name == "volpath") == (feature == "volpath")
         assert img.mean() > 0
+    elif head.startswith("Integrator"):
+        assert sc.integrator.name == feature and img.mean() > 0
     else:
         assert st.mat_features

@@ -23,6 +23,13 @@ def uniform_sample_sphere(u1, u2):
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
+def uniform_sample_hemisphere(u1, u2):
+    z = u1
+    r = torch.sqrt((1.0 - z * z).clamp_min(0.0))
+    phi = 2.0 * math.pi * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
 def concentric_sample_disk(u1, u2):
     """Shirley-Chiu concentric disk warp (sampling.cpp ConcentricSampleDisk),
     branch-free."""

@@ -33,8 +33,8 @@ from tpupt_torch.scene.flatten import (FILTER_BOX, FILTER_GAUSSIAN,
 
 class Film(NamedTuple):
     """rgb: weighted sums; weight: filter-weight sums; splat: unweighted
-    splats (kept for the bidirectional integrators); aov: (H*W, A)
-    telemetry sums."""
+    splats (BDPT's t == 1 strategies, MLT); aov: (H*W, A) telemetry
+    sums."""
 
     rgb: torch.Tensor     # (H*W, 3)
     weight: torch.Tensor  # (H*W,)
@@ -136,6 +136,16 @@ def add_samples(film: Film, cfg: FilmConfig, p_film, L, aov=None,
             if aov is not None:
                 aov_acc = aov_acc.index_add(0, pid, w[:, None] * aov)
     return Film(rgb=rgb, weight=wsum, splat=film.splat, aov=aov_acc)
+
+
+def add_splats(film: Film, cfg: FilmConfig, p_film, L) -> Film:
+    """Film::AddSplat counterpart (film.cpp:144): unweighted accumulation
+    into the pixel under each raster position, clamped to the film (a
+    lane that splats nothing carries L = 0)."""
+    ix = p_film[:, 0].to(torch.int32).clamp(0, cfg.xres - 1)
+    iy = p_film[:, 1].to(torch.int32).clamp(0, cfg.yres - 1)
+    pid = (iy * cfg.xres + ix).long()
+    return film._replace(splat=film.splat.index_add(0, pid, L))
 
 
 def to_image(film: Film, cfg: FilmConfig, splat_scale: float = 0.0):

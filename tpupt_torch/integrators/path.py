@@ -69,6 +69,8 @@ _RR_START = 3  # bounces before RR kicks in (path.cpp:193)
 # the integrators spectral transport covers (the others warn and render RGB)
 SPECTRAL_INTEGRATORS = ("path", "volpath", "bdpt", "mlt", "directlighting",
                         "whitted", "ambientocclusion")
+# the integrators `value_and_grad` and the training step differentiate
+GRADIENT_INTEGRATORS = ("path", "volpath")
 # fixed wavefront batch: one shape of work whatever the resolution
 BATCH_RAYS = 131072
 
@@ -615,12 +617,20 @@ class Renderer:
     the kernels leave the per-ray counters (the node-visit, leaf-visit and
     prim-test AOVs) out; the images are the same either way.
 
-    Integrators: `path`, and `volpath`, which renders a scene with media
+    Integrators: `path`; `volpath`, which renders a scene with media
     through integrators/volpath.py (`volpath_li`) and one without through
-    `path_li`, as the JAX package does. spectral=True renders with 60-bin
-    sampled-spectrum transport (`upload(spectral=True)`; tables handed over
-    are switched to it); an integrator outside the spectral families warns
-    and renders in RGB."""
+    `path_li`, as the JAX package does; `directlighting`, `whitted` and
+    `ambientocclusion` (integrators/direct.py); `bdpt`
+    (integrators/bdpt.py, its t == 1 strategies into the film's splats,
+    which `image` scales by 1 / the samples accumulated into the film).
+    `mlt` and `sppm` render through their drivers, integrators/mlt.py
+    `MLTRenderer(renderer)` and sppm.py `SPPMRenderer(renderer)`; inside
+    this sample loop they, and any other name, estimate with `path_li`, as
+    the JAX package's step does. `value_and_grad` and the training step
+    take `path` and `volpath` only (ROADMAP.md queue 1, item 12).
+    spectral=True renders with 60-bin sampled-spectrum transport
+    (`upload(spectral=True)`; tables handed over are switched to it); an
+    integrator outside the spectral families warns and renders in RGB."""
 
     def __init__(self, scene: FlatScene, device="cuda",
                  light_strategy: str = None, tables=None, isect=None,
@@ -630,10 +640,6 @@ class Renderer:
             warnings.warn("spectral transport covers the path/volpath/bdpt/"
                           f"mlt integrator families; {name} renders in RGB")
             spectral = False
-        if name not in ("path", "volpath"):
-            raise NotImplementedError(
-                f"integrator {name!r} is not in the PyTorch port yet "
-                "(ROADMAP.md queue 1, item 12)")
         accel = (scene.accelerator_name or "bvh").lower()
         self.device = torch.device(device)
         self.scene = scene
@@ -739,17 +745,43 @@ class Renderer:
                                  cam.lens_radius, cam.focal_distance,
                                  self.cfg.xres, self.cfg.yres, **keys)
         integ = self.scene.integrator
+        name = integ.name
         kw = dict(isect=isect or self._isect,
                   tables=tables or self._shade_tables,
                   with_stats=(self.collect_stats if with_stats is None
                               else with_stats))
-        if integ.name == "volpath" and st.n_media > 0:
+        splats = None
+        if name == "volpath" and st.n_media > 0:
             from tpupt_torch.integrators.volpath import volpath_li
 
             L, aov = volpath_li(ds, st, sampler, integ.max_depth,
                                 integ.rr_threshold, px_b, py_b, sample_idx,
                                 o, d, **kw)
+        elif name == "bdpt":
+            from tpupt_torch.integrators.bdpt import bdpt_li
+
+            L, aov, sp_p, sp_L = bdpt_li(
+                ds, st, sampler, integ.max_depth, px_b, py_b, sample_idx,
+                o, d, self.cfg.xres, self.cfg.yres, valid=self._valid_b[b],
+                **kw)
+            splats = (sp_p, sp_L)
+        elif name in ("directlighting", "whitted"):
+            from tpupt_torch.integrators.direct import direct_lighting_li
+
+            strategy = integ.strategy if name == "directlighting" else "all"
+            L, aov = direct_lighting_li(ds, st, sampler, integ.max_depth,
+                                        strategy, px_b, py_b, sample_idx, o,
+                                        d, **kw)
+        elif name == "ambientocclusion":
+            from tpupt_torch.integrators.direct import ao_li
+
+            L, aov = ao_li(ds, st, sampler, min(integ.n_ao_samples, 16),
+                           integ.cos_sample, px_b, py_b, sample_idx, o, d,
+                           **kw)
         else:
+            # path, volpath without media, and any other name (mlt and
+            # sppm inside the shared sample loop), as the JAX package's
+            # step does
             L, aov = path_li(ds, st, sampler, integ.max_depth,
                              integ.rr_threshold, px_b, py_b, sample_idx, o,
                              d, time=time, **kw)
@@ -762,13 +794,18 @@ class Renderer:
             # vignetted lanes carry nothing; the exit-pupil box's measure
             # turns the estimate into one over the rear disk
             L = torch.where(lens[0][..., None], L, 0.0) * lens[1][..., None]
+        if splats is not None:
+            return p_raster, L, aov, splats
         return p_raster, L, aov
 
     def _step(self, film, sample_idx, b, ds=None, **kw):
-        """One batch of one sample: camera rays -> path_li -> film. `ds`
-        replaces the renderer's tables, `kw` goes to `_radiance`."""
-        p_raster, L, aov = self._radiance(
+        """One batch of one sample: camera rays -> the integrator -> film
+        (BDPT's t == 1 strategies into its splats). `ds` replaces the
+        renderer's tables, `kw` goes to `_radiance`."""
+        p_raster, L, aov, *splats = self._radiance(
             self.ds if ds is None else ds, sample_idx, b, **kw)
+        if splats:
+            film = filmmod.add_splats(film, self.cfg, *splats[0])
         if np.isfinite(self.cfg.max_sample_luminance):
             lum = luminance(L)
             s = torch.where(lum > self.cfg.max_sample_luminance,
@@ -807,6 +844,7 @@ class Renderer:
         before the next is built. So the traversal kernels launch as often as
         in a forward sample, and memory holds one batch's graph and the
         recorded hits (about 30 B a ray a traversal)."""
+        self._refuse_gradients()
         unknown = sorted(set(params) - set(DeviceScene._fields))
         if unknown:
             raise KeyError(f"not fields of DeviceScene: {unknown}")
@@ -849,6 +887,13 @@ class Renderer:
         grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
                  for k, v in leaves.items()}
         return value.detach(), grads, film
+
+    def _refuse_gradients(self):
+        name = self.scene.integrator.name
+        if name not in GRADIENT_INTEGRATORS:
+            raise NotImplementedError(
+                f"gradients of the {name!r} integrator are not in the "
+                "PyTorch port yet (ROADMAP.md queue 1, item 12)")
 
     def new_film(self):
         return filmmod.new_film(self.cfg.xres, self.cfg.yres, self.device)
@@ -903,7 +948,10 @@ class Renderer:
         return film
 
     def image(self, film):
-        return filmmod.to_image(film, self.cfg).cpu().numpy()
+        # splats (BDPT t == 1) are averaged over the samples accumulated
+        # into this film (Film::WriteImage splatScale, film.cpp:153)
+        scale = 1.0 / max(self._spp_rendered, 1)
+        return filmmod.to_image(film, self.cfg, scale).cpu().numpy()
 
     def aovs(self, film):
         return {k: v.cpu().numpy()

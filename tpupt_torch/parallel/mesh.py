@@ -27,6 +27,9 @@ def train_step_fn(scene, mesh, target, device="cuda", tables=None,
     radiance against `target` -> reverse-mode gradients with respect to the
     parameter tables (traversal detached) -> SGD update.
 
+    The scene's integrator is `path` or `volpath`; the others raise
+    NotImplementedError (ROADMAP.md queue 1, item 12).
+
     `mesh`: None, or a sequence of devices; with more than one device it
     raises NotImplementedError, with one the step runs there instead of on
     `device`. `target` (H, W, 3) image. `tables` and `spectral` as for
@@ -56,6 +59,7 @@ def train_step_fn(scene, mesh, target, device="cuda", tables=None,
                 "port yet (ROADMAP.md queue 1, item 13)")
         device = mesh[0] if mesh else device
     base = Renderer(scene, device=device, tables=tables, spectral=spectral)
+    base._refuse_gradients()
     cfg = base.cfg
     target = torch.as_tensor(target, dtype=torch.float32,
                              device=base.device).reshape(-1, 3)

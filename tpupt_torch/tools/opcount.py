@@ -8,7 +8,8 @@ many operations here), and their operations are left out of the totals.
         [--depth D] [--spectral]
 
 Prints one JSON line: the scene's material families, the traversal calls
-of one sample, the other operations of that sample in all and without the
+of one sample (of `mlt`, one mutation step; of `sppm`, one camera and one
+photon pass), the other operations of that sample in all and without the
 view operations, and the ten most frequent. The grid-medium tracking
 calls of a volpath scene (kernel K6 on the card, ops/media_tracking.py) are
 counted apart too: their number, and the non-view operations their plain
@@ -63,8 +64,44 @@ class OpCounter(TorchDispatchMode):
 def count_sample(renderer: Renderer, sample_idx: int = 0) -> dict:
     """The operations of one sample of `renderer` outside its traversal
     calls, and the number of those calls (after a warm-up sample, so that
-    one-time table uploads are left out)."""
+    one-time table uploads are left out). Under `mlt` and `sppm`, whose
+    drivers do not run the sample loop: one mutation step of
+    `MLTRenderer` (one chain a lane of the renderer's batch), and one
+    camera pass and one photon pass of `SPPMRenderer` (one photon a
+    pixel)."""
+    name = renderer.scene.integrator.name
+    if name == "mlt":
+        from tpupt_torch.integrators.mlt import MLTRenderer
+
+        mr = MLTRenderer(renderer)
+        gen = torch.Generator().manual_seed(0)
+        u = torch.rand((mr.n, mr.n_dims), generator=gen)
+        depth = torch.randint(0, mr.max_depth + 1, (mr.n,), generator=gen,
+                              dtype=torch.int32)
+        L, pr = mr.eval_path(u, depth)
+        splat = torch.zeros((mr.xres * mr.yres, 3))
+        return count_ops(renderer, lambda: mr.step(u, depth, L, pr, splat,
+                                                   sample_idx))
+    if name == "sppm":
+        from tpupt_torch.integrators.sppm import SPPMRenderer
+
+        sr = SPPMRenderer(renderer)
+
+        def passes():
+            vp = sr.camera_pass(sample_idx)
+            radius = torch.full((sr.npix_pad,), sr.r0)
+            cell = torch.amax(radius) * 1.0001
+            sr.photon_pass(sample_idx, vp, radius,
+                           renderer.ds.world_lo - 2 * cell, cell)
+        return count_ops(renderer, passes)
     renderer.render(spp=1)
+    return count_ops(renderer, lambda: renderer._spp(renderer.new_film(),
+                                                     sample_idx))
+
+
+def count_ops(renderer: Renderer, run) -> dict:
+    """The operations `run()` dispatches outside the traversal calls of
+    `renderer` (and the grid-medium tracking calls), and those calls."""
     counter = OpCounter()
     calls = []
     isect = renderer._isect
@@ -94,7 +131,7 @@ def count_sample(renderer: Renderer, sample_idx: int = 0) -> dict:
     renderer._isect = paused
     try:
         with torch.no_grad(), counter:
-            renderer._spp(renderer.new_film(), sample_idx)
+            run()
     finally:
         renderer._isect = isect
         for name, fn in wrapped.items():

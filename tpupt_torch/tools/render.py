@@ -8,8 +8,11 @@ src/main/pbrt.cpp):
         [--accelerator bvh|kdtree|rbsp|bsp...] [--dumptree] [--writestats]
         [--cat | --toply] [--profile DIR] [--logfile F] [--loglevel L]
 
-Parses and flattens the scene, uploads it, renders with the path or volpath
-integrator and writes the image; --spectral renders with 60-bin sampled
+Parses and flattens the scene, uploads it, renders with the scene's
+integrator (path, volpath, directlighting, whitted, ambientocclusion and
+bdpt through `Renderer`; mlt through `MLTRenderer` with
+max(8 spp, 32) mutations a pixel, sppm through `SPPMRenderer` with
+max(spp, 4) iterations) and writes the image; --spectral renders with 60-bin sampled
 spectra (PBRT_SAMPLED_SPECTRUM) instead of RGB triples. It runs on the CUDA device unless --cpu is given, and
 fails when there is none: it never drops to the CPU by itself.
 
@@ -171,8 +174,25 @@ def main(argv=None) -> int:
     spp = args.spp or scene.sampler.spp
     with (tlog.profile_to(args.profile) if args.profile
           else contextlib.nullcontext()):
-        film = renderer.render(spp=spp, verbose=not args.quiet)
-        img = renderer.image(film)
+        name = scene.integrator.name
+        if name == "mlt":
+            from tpupt_torch.integrators.mlt import MLTRenderer
+
+            mr = MLTRenderer(renderer)
+            img = mr.render(mutations_per_pixel=max(spp * 8, 32),
+                            verbose=not args.quiet)
+            film = mr.film  # the estimate as splats, splatScale 1
+            renderer._spp_rendered = 1
+        elif name == "sppm":
+            from tpupt_torch.integrators.sppm import SPPMRenderer
+
+            sr = SPPMRenderer(renderer)
+            img = sr.render(n_iterations=max(spp, 4), verbose=not args.quiet)
+            film = sr.film  # the estimate in rgb with unit weights
+            renderer._spp_rendered = 1
+        else:
+            film = renderer.render(spp=spp, verbose=not args.quiet)
+            img = renderer.image(film)
     t2 = time.time()
     out = args.outfile or os.path.splitext(
         os.path.basename(scene.film.filename))[0] + ".png"
