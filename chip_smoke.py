@@ -54,7 +54,7 @@ hit, NEE shadow, the subsurface probe and the exit's shadow ray), beside
 the untextured museum in the same run and against the plain version on the
 crop; takes `value_and_grad` with respect to the bench's four tables; and
 holds the five new samplers' values on the card against the CPU's, bit for
-bit, on a grid of 64x64 pixels, 16 samples and 64 dimensions.
+bit, on a grid of 64x64 pixels, 8 samples and 64 dimensions.
 The `kernels` phase also holds K1's motion instance (the leaf step lerps
 each triangle to the ray's shutter time through the prim rows' vertex
 deltas) bit for bit against the plain walker at the rays' times, closest
@@ -88,7 +88,7 @@ its plain loops and times it on every call of the fog museum's middle
 batch; and takes a 1-spp `value_and_grad` of each (the film linear in
 light_L).
 The `integrators` phase renders the small museum through K1 at 1024x1024
-and depth 5 under the direct-lighting ("all"), Whitted, ambient-occlusion
+and depth 5 under the direct-lighting ("one"), Whitted, ambient-occlusion
 and BDPT integrators (1 spp each, BDPT's t == 1 strategies into the film's
 splats), with MLT (`MLTRenderer`: one batch of bootstrap paths a depth, one
 mutation a pixel) and with SPPM (`SPPMRenderer`: one iteration of one
@@ -96,13 +96,31 @@ photon a pixel), each with the launch counts set to 0 just before and read
 just after and held to the calls its loops make; before them, every K1
 call of one BDPT batch, one MLT mutation step and one SPPM photon chunk is
 held bit for bit against the plain walker.
+The `mesh` phase drives `parallel/mesh.py` on this one card: two ranks
+spawned as processes of their own over gloo (two NCCL ranks cannot share a
+card) render the small museum at 1024x1024 through `ShardedRenderer`, each
+its own four of the sample's eight batches (48 K1 launches a rank), to a
+film equal to the main path's render to the bit on every pixel of at most
+two samples (the card's atomics sum three or four in no fixed order, as
+in two renders of one process); BDPT at 256x256 over them against one
+process at the same batch (splats within a stated tolerance: summed in
+another order) and one training step over them against one process's; a
+one-rank job over NCCL renders the museum again through its all-reduce. Meanwhile `tools/bsdftest.py` runs its
+eight materials on the card against the CPU. A failing rank fails the
+run. The two ranks' ms per spp are two ranks sharing one card, not a
+scaling figure. To keep the script's time since the mesh phase came, the
+appearance, materials, motion and media phases take their value_and_grad
+at 512x512, the training steps run at 512x512 (the `gradients` phase's
+value_and_grad stays at 1024x1024), the direct-lighting render takes one
+light a vertex, and the samplers are compared on 8 sample indices.
 There is no fallback: without a CUDA device, without the `tpupt_torch`
 package beside it, with a kernel that does not build, launch or agree, or
 with any failed check, it exits with a code other than 0 and prints no
 result line.
 
 Output: one JSON object per phase (`env`, `kernels`, `main_path`,
-`gradients`, `appearance`, `materials`, `motion`, `media`, `integrators`),
+`gradients`, `appearance`, `materials`, `motion`, `media`, `integrators`,
+`mesh`),
 then the card's name and power
 limit, the `{"kernels": [...]}` line, and last `{"ok": true, "device":
 {...}}`.
@@ -142,14 +160,16 @@ from tpupt_torch.ops import traverse_kdbsp as tk
 from tpupt_torch.ops import traverse_requeue as tr
 from tpupt_torch.ops import traverse_treelets as tt
 from tpupt_torch.ops import traverse_wide as tw
+from tpupt_torch.parallel import mesh as mesh_mod
 from tpupt_torch.parallel.mesh import train_step_fn
-from tpupt_torch.scene.device import build_scene_bvh, upload, with_alt_accel
+from tpupt_torch.scene.device import (build_scene_bvh, from_numpy, upload,
+                                      with_alt_accel)
 from tpupt_torch.scene.flatten import (MAT_KDSUBSURFACE, MAT_SUBSURFACE,
                                        flatten, with_resolution)
 from tpupt_torch.scene.loader import parse_file, parse_string
 from tpupt_torch.scene.params import ParamSet
 from tpupt_torch.textures.textures import ALL_TYPES
-from tpupt_torch.tools import genscene, testscenes
+from tpupt_torch.tools import bsdftest, genscene, testscenes
 from tpupt_torch.tools import sweep as sweep_tool
 from tpupt_torch.utils.build import (BUILD_DIR, CSRC_DIR, NVCC_FLAGS,
                                      compile_shared, find_nvcc)
@@ -182,8 +202,15 @@ LINEARITY_RTOL = 1e-4
 GRAD_VS_PLAIN = 1e-5
 FILM_VS_RENDER_REL = 1e-6
 # two SGD steps of train_step_fn toward the small museum rendered with
-# every diffuse albedo halved
-TRAIN_STEPS, TRAIN_LR = 2, 0.5
+# every diffuse albedo halved, at TRAIN_RES (MAIN_RES before the mesh phase
+# came: 14.6 s of steps on an H100 at 700 W)
+TRAIN_STEPS, TRAIN_LR, TRAIN_RES = 2, 0.5, 512
+# the later phases' value_and_grad (appearance, materials, motion, media)
+# runs at GRAD_RES (MAIN_RES before the mesh phase came: the script took
+# up to 1,132.6 s on an H100 at 700 W, hosts differing 1.4x, and the
+# materials museum's fwd+bwd alone 39.4 s); the gradients phase keeps
+# MAIN_RES
+GRAD_RES = 512
 # the appearance phase: tools/testscenes.py textured_museum at MUSEUM_65K's
 # size (a 2048x2048 floor texture, a 2048x1024 environment map with a sun
 # disc, a 256x128 goniometric map), SPP_APPEAR samples through K1;
@@ -208,7 +235,8 @@ SPP_MATERIALS = 1   # see SPP_65K
 MATERIALS_LINEARITY_RTOL = 1e-5
 NEW_SAMPLERS = ("sobol", "02sequence", "lowdiscrepancy", "maxmindist",
                 "stratified")
-SAMPLER_GRID = (64, 16, 64)
+# (16 sample indices before the mesh phase came: 13.7 s of checks)
+SAMPLER_GRID = (64, 8, 64)
 # the motion phase: tools/testscenes.py motion_museum at MUSEUM_65K's size,
 # SPP_MOTION samples through K1's motion instance (a vertex launches it
 # twice: 96 launches a spp), one fwd+bwd sample of value_and_grad with
@@ -254,7 +282,9 @@ K6_REPLACES = {
                             "lane's delta-tracking loop, XLA; no Pallas "
                             "kernel)"}
 # the integrators phase: the small museum at MAIN_RES and its depth (5)
-# through K1 under the direct-lighting ("all"), Whitted, ambient-occlusion
+# through K1 under the direct-lighting ("one" light a vertex: Whitted runs
+# the "all" strategy; "all" before the mesh phase came), Whitted,
+# ambient-occlusion
 # (16 samples: tpupt's cap) and BDPT integrators, 1 spp each; MLT with one
 # renderer batch of bootstrap paths a depth and MLT_MUTATIONS mutations a
 # pixel; SPPM, SPPM_ITERATIONS iterations of one photon a pixel. Through a
@@ -263,6 +293,29 @@ K6_REPLACES = {
 MLT_MUTATIONS = 1
 SPPM_ITERATIONS = 1
 INTEGRATORS = ("directlighting", "whitted", "ambientocclusion", "bdpt")
+# the mesh phase: the small museum at MAIN_RES through a one-rank NCCL
+# ShardedRenderer (its film against the main path's render of the same
+# museum), and through two ranks spawned over gloo on this one card (the
+# same film, each rank launching half a sample's K1 calls); films equal to
+# the bit on every pixel of at most two samples and within MESH_ORDER_RTOL
+# on the few of three or four, which the card's atomics sum in no fixed
+# order (59 pixels of 1,048,576 differ between two renders of one process);
+# BDPT at MESH_RES over the two ranks against one process at the same batch
+# (the same, and the splats within MESH_SPLAT_REL of the largest: summed in
+# another order), and one training step over them
+# against one process's (loss within MESH_LOSS_RTOL, each table's step
+# (p - p_new) / lr within MESH_STEP_REL of its largest plus a float32 ulp of
+# the parameter over lr); bsdftest's eight materials on the card against
+# the CPU (rho within BSDF_RHO_RTOL, the same verdict)
+MESH_RES = 256
+MESH_ORDER_RTOL = 1e-6
+MESH_SPLAT_REL = 1e-5
+MESH_LOSS_RTOL = 1e-5
+MESH_STEP_REL = 1e-5
+MESH_TRAIN_LR = 0.5
+MESH_TIMEOUT_S = 300.0
+BSDF_SAMPLES = 100_000
+BSDF_RHO_RTOL = 1e-5
 # kd-tree, restricted BSP with 3 / 7 / 13 directions, one tree with a
 # direction per node and one with kd nodes mixed in: (name, nbDirections)
 KD_TREES = [("kdtree", None), ("rbsp", 3), ("rbsp", 7), ("rbsp", 13),
@@ -1188,7 +1241,9 @@ def main(argv) -> int:
                       with_profile)
     emit({"phase": "gradients", "params": GRAD_PARAMS,
           "loss": "sum(film.rgb)", "museum_65k": grads65,
-          "museum_1m": grads1m, "train": train_steps(sc65, tables65, dev)})
+          "museum_1m": grads1m,
+          "train": train_steps(*at_resolution_scene(sc65, tables65, TRAIN_RES),
+                               dev)})
 
     # ---- appearance: the textured, environment-lit museum through K1
     look = appearance(dev, with_profile, (sc65, tables65))
@@ -1212,6 +1267,11 @@ def main(argv) -> int:
     # the small museum through K1
     integ = integrators(dev, (sc65, tables65))
     emit({"phase": "integrators", **integ})
+
+    # ---- mesh: parallel/mesh.py on this card, two ranks over gloo and one
+    # over NCCL; bsdftest on the card
+    msh = mesh(dev, (sc65, tables65), film65)
+    emit({"phase": "mesh", **msh})
 
     kernels = []
     # K1 at the shape where the main path launches it: the 63,558-triangle
@@ -1416,17 +1476,20 @@ def appearance(dev, with_profile, untextured) -> dict:
     plain = against_plain_render(scene, tables, "traverse_wide", dev)
 
     # value_and_grad with respect to the appearance tables
-    grad_line = emitter_grads(r, {k: getattr(ds, k) for k in APPEAR_PARAMS},
+    grad_line = emitter_grads(grad_renderer(scene, tables, dev),
+                              {k: getattr(ds, k) for k in APPEAR_PARAMS},
                               SPP_APPEAR, ("light_L", "env_map"),
                               LINEARITY_RTOL, "appearance")
 
-    # TRAIN_STEPS training steps toward the image with env_map halved
-    target_r = Renderer(scene, device=dev, tables=(
-        ds._replace(env_map=ds.env_map * 0.5), st))
+    # TRAIN_STEPS training steps toward the image with env_map halved, at
+    # TRAIN_RES
+    sc_t, (ds_t, st_t) = at_resolution_scene(scene, tables, TRAIN_RES)
+    target_r = Renderer(sc_t, device=dev, tables=(
+        ds_t._replace(env_map=ds_t.env_map * 0.5), st_t))
     target = target_r.image(target_r.render(spp=1))
     del target_r
-    step, params0 = train_step_fn(scene, None, target, device=dev,
-                                  tables=tables)
+    step, params0 = train_step_fn(sc_t, None, target, device=dev,
+                                  tables=(ds_t, st_t))
     tparams = {k: params0[k] for k in APPEAR_PARAMS}
     losses, t_ms = [], []
     torch.cuda.synchronize()
@@ -1466,7 +1529,8 @@ def appearance(dev, with_profile, untextured) -> dict:
         "image_mean_rgb": [float(x) for x in img.reshape(-1, 3).mean(0)],
         **plain, "gradients": grad_line,
         "train": {"params": APPEAR_PARAMS, "lr": APPEAR_TRAIN_LR,
-                  "target": "env_map * 0.5", "loss_each_step": losses,
+                  "target": "env_map * 0.5", "resolution": [TRAIN_RES] * 2,
+                  "loss_each_step": losses,
                   "ms_each_step": t_ms},
         **profiled}
 
@@ -1511,7 +1575,8 @@ def emitter_grads(r, params, spp, emitters, rtol, tag,
     return {
         "params": tuple(params), "spp": spp,
         "fwd_bwd_ms_per_spp": ms, "fwd_bwd_ms_each_spp": step_ms,
-        "fwd_bwd_camera_rays_per_s": MAIN_RES * MAIN_RES / (ms * 1e-3),
+        "resolution": [r.cfg.xres, r.cfg.yres],
+        "fwd_bwd_camera_rays_per_s": r.cfg.xres * r.cfg.yres / (ms * 1e-3),
         "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
         "allocated_bytes_before": bytes_before, "launches": counts,
         "loss": values, "emitters": emitters,
@@ -1578,7 +1643,8 @@ def materials(dev, with_profile, untextured) -> dict:
     plain = against_plain_render(scene, tables, "traverse_wide", dev)
 
     # value_and_grad with respect to the bench's tables
-    grad_line = emitter_grads(r, {k: getattr(ds, k) for k in GRAD_PARAMS},
+    grad_line = emitter_grads(grad_renderer(scene, tables, dev),
+                              {k: getattr(ds, k) for k in GRAD_PARAMS},
                               SPP_MATERIALS, ("light_L",),
                               MATERIALS_LINEARITY_RTOL, "materials",
                               calls_per_vertex=4)
@@ -1905,7 +1971,8 @@ def motion(dev, static_museum) -> dict:
     plain = against_plain_render(scene, tables, "traverse_wide_motion", dev,
                                  plain_isect=plain_traversal("traverse_wide"),
                                  crop=PLAIN_CROP)
-    grad_line = emitter_grads(r, {k: getattr(ds, k) for k in GRAD_PARAMS}, 1,
+    grad_line = emitter_grads(grad_renderer(scene, tables, dev),
+                              {k: getattr(ds, k) for k in GRAD_PARAMS}, 1,
                               ("light_L",), LINEARITY_RTOL, "motion",
                               kind="traverse_wide_motion")
     expected = 2 * (scene.integrator.max_depth + 1) * r.n_batches * SPP_MOTION
@@ -3093,8 +3160,9 @@ def media(dev, static_museum, fog, with_profile) -> dict:
     del r_static
     plain_s = against_plain_render(sc_spec, tables_s, "traverse_wide", dev,
                                    crop=PLAIN_CROP)
-    grads_s = emitter_grads(r, {k: getattr(tables_s[0], k)
-                                for k in GRAD_PARAMS}, 1, ("light_L",),
+    grads_s = emitter_grads(grad_renderer(sc_spec, tables_s, dev),
+                            {k: getattr(tables_s[0], k)
+                             for k in GRAD_PARAMS}, 1, ("light_L",),
                             LINEARITY_RTOL, "spectral")
     del r
 
@@ -3138,7 +3206,8 @@ def media(dev, static_museum, fog, with_profile) -> dict:
     # pass 2 of value_and_grad replays traversal from pass 1's record but
     # runs the shading chain again, K6 with it: twice a batch
     grads_f = emitter_grads(
-        r, {k: getattr(ds, k) for k in MEDIA_PARAMS}, 1, ("light_L",),
+        grad_renderer(scene, tables, dev),
+        {k: getattr(ds, k) for k in MEDIA_PARAMS}, 1, ("light_L",),
         LINEARITY_RTOL, "fog", per_batch={
             k: v * (1 if k == "traverse_wide" else 2)
             for k, v in per_batch.items()})
@@ -3271,16 +3340,17 @@ def integrators(dev, static_museum) -> dict:
         return Renderer(sc, device=dev, tables=tables65)
 
     # K1 calls a batch: a direct-lighting vertex makes a closest hit, and a
-    # shadow ray and a BSDF-sampled ray for each light; AO a closest hit and
+    # shadow ray and a BSDF-sampled ray for its one light (Whitted: for each
+    # light); AO a closest hit and
     # 16 occlusion rays; BDPT 2D + 1 walk steps and D (s == 1) +
     # (D - 1) D / 2 (s >= 2) + D (t == 1) connections
     bdpt_calls = (2 * depth + 1) + depth + (depth - 1) * depth // 2 + depth
-    calls = {"directlighting": depth * (1 + 2 * n_lights),
+    calls = {"directlighting": depth * (1 + 2),
              "whitted": depth * (1 + 2 * n_lights),
              "ambientocclusion": 1 + 16, "bdpt": bdpt_calls}
     checked = {}
     for name in INTEGRATORS:
-        r = renderer(name, strategy="all") if name == "directlighting" \
+        r = renderer(name, strategy="one") if name == "directlighting" \
             else renderer(name)
         if name == "bdpt":
             # every K1 call of the middle batch, against the plain walker
@@ -3376,6 +3446,284 @@ def integrators(dev, static_museum) -> dict:
             "rays": v[0]["rays"], "live_rays": sum(c["live"] for c in v),
             "max_abs_err": max(c["max_abs_err"] for c in v)}
         for k, v in checked.items()}
+    out["phase_s"] = round(time.time() - t_phase, 1)
+    return out
+
+
+
+def grad_renderer(scene, tables, dev):
+    """A renderer of (scene, tables) at GRAD_RES x GRAD_RES."""
+    sc, t = at_resolution_scene(scene, tables, GRAD_RES)
+    return Renderer(sc, device=dev, tables=t)
+
+
+def at_resolution_scene(scene, tables, res):
+    """(scene, tables) at res x res pixels."""
+    scene = with_resolution(scene, res, res)
+    return scene, at_resolution(tables, scene)
+
+
+def at_resolution(tables, scene):
+    """`tables` with the raster-to-camera matrix of `scene` (the same
+    scene at another resolution: nothing else of the tables depends on
+    it)."""
+    ds, st = tables
+    r2c = torch.from_numpy(scene.camera.raster_to_camera).to(
+        ds.raster_to_camera.device)
+    return ds._replace(raster_to_camera=r2c), st
+
+
+def film_on_cpu(film) -> dict:
+    return {k: v.cpu() for k, v in film._asdict().items()}
+
+
+def k1_only(counts, want, tag):
+    """Fails unless K1 launched `want` times and no other kernel did."""
+    for k, c in counts.items():
+        if c != (want if k == "traverse_wide" else 0):
+            fail(f"{tag} launched {k} {c} times, expected "
+                 f"{want if k == 'traverse_wide' else 0}")
+
+
+def film_batches(scene) -> int:
+    n = scene.film.xres * scene.film.yres
+    return -(-n // mesh_mod.sharded_batch(n, 2))
+
+
+def mesh_rank(m, sc65, fields, statics, sc_bdpt, sc_train, target):
+    """One of the mesh phase's two ranks (a spawned process bound to the
+    same card, gloo): the small museum at MAIN_RES, BDPT at MESH_RES and
+    one training step at MESH_RES, each through `parallel.mesh` with the
+    launch counts set to 0 just before and read just after. Returns the
+    films and the step on the CPU with this rank's seconds and launches."""
+    import torch.distributed as dist
+
+    tables = from_numpy(fields, statics, device=m.device)
+    tables_small = at_resolution(tables, sc_bdpt)
+    out = {}
+    r = Renderer(sc65, device=m.device, tables=tables, collect_stats=True)
+    sr = mesh_mod.ShardedRenderer(sc65, m, base=r)
+    with torch.no_grad():
+        r._step(r.new_film(), 0, sr.batches[0])
+    for name, renderer in (("museum", sr), ("bdpt", None)):
+        if renderer is None:
+            renderer = mesh_mod.ShardedRenderer(sc_bdpt, m, base=Renderer(
+                sc_bdpt, device=m.device, tables=tables_small))
+        dist.barrier(group=m.group)
+        zero_launches()
+        t0 = time.time()
+        film = renderer.render(spp=1)
+        mesh_mod._sync(m.device)
+        out[name] = {"film": film_on_cpu(film), "s": time.time() - t0,
+                     "launches": launch_counts(),
+                     "batches": renderer.batches, "batch": renderer.batch}
+        check_stack_depths()
+    step, p0 = train_step_fn(sc_train, m, target, tables=tables_small)
+    dist.barrier(group=m.group)
+    zero_launches()
+    t0 = time.time()
+    loss, new = step({k: p0[k] for k in GRAD_PARAMS}, 0, MESH_TRAIN_LR)
+    mesh_mod._sync(m.device)
+    out["train"] = {"loss": float(loss), "s": time.time() - t0,
+                    "new": {k: v.cpu() for k, v in new.items()},
+                    "launches": launch_counts()}
+    return out
+
+
+def films_equal(a: dict, b, tag, splat_rel=None) -> dict:
+    """Fails unless film `a` (fields on the CPU) equals one process's film
+    `b`: rgb / weight / aov to the bit on every pixel that took at most two
+    samples (a sum of two is the same in either order), and within
+    MESH_ORDER_RTOL of b on the others, whose three or four samples the
+    card's index_add sums in no fixed order (two renders of one process
+    differ there too); the splats to the bit, or within `splat_rel` of the
+    largest splat."""
+    few = b.weight.cpu() <= 2
+    out = {"pixels_of_three_or_four_samples": int((~few).sum())}
+    for k in ("rgb", "weight", "aov"):
+        x, y = a[k], getattr(b, k).cpu()
+        mask = few if x.dim() == 1 else few[:, None]
+        if not torch.equal(torch.where(mask, x, 0.0),
+                           torch.where(mask, y, 0.0)):
+            fail(f"{tag}: {k} differs from one process's film on a pixel of "
+                 f"at most two samples")
+        err = (x - y).abs()
+        if not bool((err <= MESH_ORDER_RTOL * y.abs()).all()):
+            fail(f"{tag}: {k} differs from one process's film by "
+                 f"{float(err.max())}")
+        diff = x != y
+        out[f"{k}_pixels_differing"] = int(
+            (diff if diff.dim() == 1 else diff.any(-1)).sum())
+        out[f"{k}_max_abs_err"] = float(err.max())
+    ref = b.splat.cpu()
+    err = float((a["splat"] - ref).abs().max())
+    scale = float(ref.abs().max())
+    if splat_rel is None and err != 0.0:
+        fail(f"{tag}: splat differs by {err}")
+    if splat_rel is not None and not err <= splat_rel * scale:
+        fail(f"{tag}: splat differs by {err}, largest {scale}")
+    return {**out, "splat_max_abs_err": err, "splat_largest": scale}
+
+
+def mesh(dev, static_museum, film65) -> dict:
+    """The mesh phase: `parallel/mesh.py` on this one card. Two ranks
+    spawned over gloo (two NCCL ranks cannot share a card) render the small
+    museum at MAIN_RES, BDPT at MESH_RES and take one training step, each
+    rank launching its own half of the batches; meanwhile this process
+    runs bsdftest's eight materials on the card and on the CPU and the
+    one-process references. Then a one-rank NCCL job renders the museum
+    through `ShardedRenderer` (all_reduce over NCCL) against `film65`, the
+    main path's render. A failing rank makes `spawn` raise, which fails
+    the run."""
+    import torch.distributed as dist
+
+    sc65, tables65 = static_museum
+    t_phase = time.time()
+    depth = sc65.integrator.max_depth
+    sc_train = with_resolution(sc65, MESH_RES, MESH_RES)
+    sc_bdpt = dataclasses.replace(sc_train, integrator=dataclasses.replace(
+        sc_train.integrator, name="bdpt"))
+    tables_small = at_resolution(tables65, sc_train)
+    target_r = Renderer(sc_train, device=dev, tables=(
+        tables_small[0]._replace(mat_kd=tables_small[0].mat_kd * 0.5),
+        tables_small[1]))
+    target = target_r.image(target_r.render(spp=1))
+    del target_r
+    fields = {k: v.cpu().numpy() for k, v in tables65[0]._asdict().items()
+              if v is not None}
+    statics = dict(tables65[1]._asdict())
+    out = {"scene": "tools/genscene.py museum", **MUSEUM_65K,
+           "resolution": [MAIN_RES, MAIN_RES], "small_resolution": MESH_RES}
+    t0 = time.time()
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(mesh_mod.spawn, mesh_rank, 2, (
+            sc65, fields, statics, sc_bdpt, sc_train, target), device=dev,
+            backend="gloo", timeout_s=MESH_TIMEOUT_S)
+        # bsdftest on the card against the CPU
+        t1 = time.time()
+        bsdf = {}
+        for mat in bsdftest.MATERIALS:
+            card = bsdftest.run(mat, BSDF_SAMPLES, 30.0, 0.2, device=dev)
+            cpu = bsdftest.run(mat, BSDF_SAMPLES, 30.0, 0.2, device="cpu")
+            rel = max(abs(a - b) / abs(b) for k in ("rho_sampled",
+                                                   "rho_uniform")
+                      for a, b in zip(card[k], cpu[k]))
+            verdict = bsdftest.consistent(card)
+            # uber's specular transmission is a delta lobe the uniform
+            # estimate cannot see: MISMATCH in both packages
+            if (not rel <= BSDF_RHO_RTOL or verdict != bsdftest.consistent(cpu)
+                    or verdict != (mat != "uber")
+                    or card["dof"] != cpu["dof"]):
+                fail(f"bsdftest {mat} on the card: rho rel {rel}, "
+                     f"{verdict} / {bsdftest.consistent(cpu)}, dof "
+                     f"{card['dof']} / {cpu['dof']}")
+            bsdf[mat] = {"verdict": "CONSISTENT" if verdict else "MISMATCH",
+                         "rho_sampled": card["rho_sampled"],
+                         "rho_uniform": card["rho_uniform"],
+                         "rho_max_rel_to_cpu": rel, "chi2": card["chi2"],
+                         "chi2_cpu": cpu["chi2"], "dof": card["dof"]}
+        out["bsdftest"] = {"samples": BSDF_SAMPLES, "theta_deg": 30.0,
+                           "roughness": 0.2, "rho_rtol": BSDF_RHO_RTOL,
+                           "s": time.time() - t1, "materials": bsdf}
+        # one process at the ranks' batch
+        rb = Renderer(sc_bdpt, device=dev, tables=tables_small)
+        rb.set_batch(mesh_mod.sharded_batch(rb.n_pixels, 2))
+        film_bdpt = rb.render(spp=1)
+        step1, p0 = train_step_fn(sc_train, None, target, device=dev,
+                                  tables=tables_small)
+        loss1, new1 = step1({k: p0[k] for k in GRAD_PARAMS}, 0,
+                            MESH_TRAIN_LR)
+        got = ranks.result()
+    spawn_s = time.time() - t0
+    for tag in ("museum", "bdpt"):
+        for k, v in got[0][tag]["film"].items():
+            if not torch.equal(v, got[1][tag]["film"][k]):
+                fail(f"mesh {tag}: the ranks' films differ in {k}")
+    per_batch = {"museum": 2 * (depth + 1),
+                 "bdpt": (2 * depth + 1) + depth + (depth - 1) * depth // 2
+                 + depth}
+    two = {"what": "two ranks sharing one card (gloo): not a scaling figure"}
+    for tag in ("museum", "bdpt"):
+        for r_ in got:
+            k1_only(r_[tag]["launches"],
+                    per_batch[tag] * len(r_[tag]["batches"]), f"mesh {tag}")
+        two[tag] = {"batch": got[0][tag]["batch"],
+                    "batches_per_rank": [r_[tag]["batches"] for r_ in got],
+                    "ms_per_spp_per_rank": [r_[tag]["s"] * 1e3 for r_ in got],
+                    "k1_launches_per_rank": [
+                        r_[tag]["launches"]["traverse_wide"] for r_ in got]}
+    half = per_batch["museum"] * film_batches(sc65) // 2
+    if two["museum"]["k1_launches_per_rank"] != [half, half]:
+        fail(f"each rank should launch half of a sample's {2 * half} K1 "
+             f"calls: {two['museum']['k1_launches_per_rank']}")
+    two["museum"].update(films_equal(got[0]["museum"]["film"], film65,
+                                     "mesh museum, two ranks"))
+    two["bdpt"].update(films_equal(got[0]["bdpt"]["film"], film_bdpt,
+                                   "mesh bdpt, two ranks", MESH_SPLAT_REL))
+    two["bdpt"]["splat_rel_bound"] = MESH_SPLAT_REL
+    losses = [r_["train"]["loss"] for r_ in got]
+    news = [r_["train"]["new"] for r_ in got]
+    if losses[0] != losses[1] or any(
+            not torch.equal(news[0][k], news[1][k]) for k in GRAD_PARAMS):
+        fail(f"mesh train: the ranks' steps differ: {losses}")
+    loss_rel = abs(losses[0] - float(loss1)) / abs(float(loss1))
+    step_err = {}
+    for k in GRAD_PARAMS:
+        p = p0[k].cpu()
+        d_ref = (p - new1[k].cpu()) / MESH_TRAIN_LR
+        d_got = (p - got[0]["train"]["new"][k]) / MESH_TRAIN_LR
+        ulp = float(np.spacing(np.abs(p.numpy())).max()) / MESH_TRAIN_LR
+        err = float((d_got - d_ref).abs().max())
+        scale = float(d_ref.abs().max())
+        if not err <= MESH_STEP_REL * scale + ulp:
+            fail(f"mesh train {k}: step differs by {err}, largest {scale}")
+        step_err[k] = {"max_abs_err": err, "largest": scale}
+    if not (np.isfinite(losses[0]) and loss_rel <= MESH_LOSS_RTOL):
+        fail(f"mesh train: loss {losses[0]} against one process's "
+             f"{float(loss1)}")
+    # MESH_RES^2 pixels in two batches: one forward batch a rank
+    for r_ in got:
+        k1_only(r_["train"]["launches"], per_batch["museum"], "mesh train")
+    two["train"] = {"params": GRAD_PARAMS, "lr": MESH_TRAIN_LR,
+                    "loss": losses[0], "loss_one_process": float(loss1),
+                    "loss_rel": loss_rel, "step_vs_one_process": step_err,
+                    "ms_per_rank": [r_["train"]["s"] * 1e3 for r_ in got],
+                    "k1_launches_per_rank": [
+                        r_["train"]["launches"]["traverse_wide"]
+                        for r_ in got]}
+    two["spawn_and_references_s"] = spawn_s
+    out["two_ranks_gloo"] = two
+    del got, film_bdpt, rb
+
+    # one rank over NCCL, alone on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        mesh_mod.init_distributed("file://" + os.path.join(tmp, "rdv"), 1,
+                                  0, device=dev)
+        # NCCL sets its communicator up at the first collective
+        dist.all_reduce(torch.zeros(1, device=dev))
+        mesh_mod._sync(torch.device(dev))
+        init_s = time.time() - t0
+        try:
+            m = mesh_mod.make_mesh()
+            r = Renderer(sc65, device=dev, tables=tables65,
+                         collect_stats=True)
+            sr = mesh_mod.ShardedRenderer(sc65, m, base=r)
+            warm_up(r)
+            zero_launches()
+            t0 = time.time()
+            film = sr.render(spp=1)
+            mesh_mod._sync(torch.device(dev))
+            ms = (time.time() - t0) * 1e3
+            counts = launch_counts()
+            backend = dist.get_backend(m.group)
+        finally:
+            dist.destroy_process_group()
+    k1_only(counts, per_batch["museum"] * r.n_batches, "mesh one rank")
+    out["one_rank_nccl"] = {
+        "backend": backend, "init_s": init_s, "ms_per_spp": ms,
+        "launches": counts, "batches": sr.batches,
+        **films_equal(film_on_cpu(film), film65, "mesh museum, one rank")}
     out["phase_s"] = round(time.time() - t_phase, 1)
     return out
 

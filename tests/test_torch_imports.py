@@ -235,3 +235,31 @@ def test_the_integrator_modules_are_among_them():
                          text=True, env=env, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "JAX False" in out.stdout
+
+
+def test_the_mesh_and_tool_modules_are_among_them():
+    """The multi-process slice and the last four tools: the sharded
+    renderer, the training step, the spawner, imgtool (its Hosek data file
+    beside it), obj2pbrt, cyhair2pbrt and bsdftest import without a card,
+    without a process group and without jax or tpupt."""
+    names = set(_module_names())
+    assert {"tpupt_torch.parallel.mesh", "tpupt_torch.tools.imgtool",
+            "tpupt_torch.tools.obj2pbrt", "tpupt_torch.tools.cyhair2pbrt",
+            "tpupt_torch.tools.bsdftest"} <= names
+    code = (
+        "import sys\n"
+        "import torch.distributed as dist\n"
+        "from tpupt_torch.parallel.mesh import (Mesh, ShardedRenderer, "
+        "init_distributed, make_mesh, scaling_curve, spawn, train_step_fn)\n"
+        "from tpupt_torch.tools import imgtool, obj2pbrt, cyhair2pbrt, "
+        "bsdftest, render\n"
+        "import os\n"
+        "assert os.path.exists(imgtool.HOSEK_DATA)\n"
+        "assert not dist.is_initialized() and make_mesh('cpu').size == 1\n"
+        "print('JAX', any(m.split('.')[0] in ('jax', 'jaxlib', 'tpupt') "
+        "for m in sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "JAX False" in out.stdout

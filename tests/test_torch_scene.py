@@ -157,11 +157,14 @@ def test_cuda_device_without_card_raises(tmp_path):
 
 
 # each feature the port still refuses: (scene lines, the step that raises,
-# the words that begin its item in ROADMAP.md's queue 1)
+# the words that begin its item in ROADMAP.md's queue 1; None for a
+# refusal that is the port's design, not a missing item)
 _UNPORTED = {
     # the other integrators render; their gradients are refused
     "integrator": ("", "training step under bdpt", "Other integrators"),
-    "mesh": ("", "training step on two devices", "Multi-GPU"),
+    # several devices are several processes (parallel/mesh.py, ported with
+    # queue 1 item 13): one process handed two devices raises ValueError
+    "mesh": ("", "training step on two devices in one process", None),
     "medium_gradients": ('MakeNamedMedium "fog" "string type" "homogeneous"',
                          "value_and_grad of a medium table",
                          "Media and volpath"),
@@ -218,7 +221,9 @@ def test_unported_features_raise_not_implemented(feature):
     """Each feature the port does not have yet (a render, or the gradients
     of one: those of the integrators other than path and volpath) raises
     where it is met, naming the ROADMAP.md queue 1 item that will bring
-    it."""
+    it. The one it will not have, a training step handed several devices
+    in one process, raises ValueError naming `init_distributed`, and the
+    same step on a list of one device trains."""
     from tpupt_torch.integrators.path import Renderer
     from tpupt_torch.parallel.mesh import train_step_fn
 
@@ -234,9 +239,12 @@ WorldBegin
 Shape "trianglemesh" "point P" [-1 -1 0  1 -1 0  1 1 0] "integer indices" [0 1 2]
 WorldEnd
 """
-    item = _roadmap_item(words)
-    refusal = pytest.raises(NotImplementedError,
-                            match=rf"ROADMAP\.md queue 1, item {item}\)")
+    if words is None:
+        refusal = pytest.raises(ValueError, match="init_distributed")
+    else:
+        item = _roadmap_item(words)
+        refusal = pytest.raises(NotImplementedError,
+                                match=rf"ROADMAP\.md queue 1, item {item}\)")
     if where == "flatten":
         with refusal:
             flatten(parse_string(txt))
@@ -252,6 +260,10 @@ WorldEnd
         else:
             train_step_fn(sc, ["cpu", "cpu"], np.zeros((8, 8, 3)),
                           device="cpu")
+    if feature == "mesh":
+        step, p0 = train_step_fn(sc, ["cpu"], np.ones((8, 8, 3)))
+        loss, new = step(p0, 0, 0.1)
+        assert float(loss) == 3.0 and set(new) == set(p0)
 
 
 def test_failed_native_build_raises(monkeypatch, tmp_path):

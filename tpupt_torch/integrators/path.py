@@ -677,10 +677,21 @@ class Renderer:
         self._medium = (build_medium(next(iter(scene.media.values())), scene)
                         if scene.media else None)
 
-        pxf, pyf = _pixel_order(self.cfg)
+        # the crop window's pixels in tile order, (px, py) int32 arrays
+        self._pixels = _pixel_order(self.cfg)
+        self.n_pixels = len(self._pixels[0])
         # fixed-size wavefront batches; the tail is padded and masked
-        self.batch = min(BATCH_RAYS,
-                         1 << int(np.ceil(np.log2(max(len(pxf), 1024)))))
+        self.set_batch(min(BATCH_RAYS, 1 << int(np.ceil(np.log2(
+            max(self.n_pixels, 1024))))))
+        self._spp_rendered = 0
+
+    def set_batch(self, batch: int):
+        """Cut the crop window's pixels into wavefront batches of `batch`
+        lanes, the tail padded with masked lanes. A lane's value does not
+        depend on its batch; the sharded renderer cuts smaller batches so
+        that every rank has one."""
+        pxf, pyf = self._pixels
+        self.batch = int(batch)
         npad = (-len(pxf)) % self.batch
         valid = np.ones(len(pxf) + npad, bool)
         if npad:
@@ -692,7 +703,6 @@ class Renderer:
         self._px_b = torch.from_numpy(pxf).to(self.device).reshape(nb, -1)
         self._py_b = torch.from_numpy(pyf).to(self.device).reshape(nb, -1)
         self._valid_b = torch.from_numpy(valid).to(self.device).reshape(nb, -1)
-        self._spp_rendered = 0
 
     def _set_alt_accel(self, accel: str):
         """The thesis kd / RBSP / BSP family (research-parity path): build the

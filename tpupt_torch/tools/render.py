@@ -7,6 +7,9 @@ src/main/pbrt.cpp):
         [--quiet] [--stats] [--cropwindow X0 X1 Y0 Y1]
         [--accelerator bvh|kdtree|rbsp|bsp...] [--dumptree] [--writestats]
         [--cat | --toply] [--profile DIR] [--logfile F] [--loglevel L]
+        [--mesh] [--distributed HOST:PORT --num-hosts N --host-id I]
+
+    torchrun --nproc-per-node N -m tpupt_torch.tools.render --mesh scene.pbrt
 
 Parses and flattens the scene, uploads it, renders with the scene's
 integrator (path, volpath, directlighting, whitted, ambientocclusion and
@@ -32,7 +35,19 @@ like the reference's writeFile). --writestats writes the per-pixel traversal
 counters as text matrices (Film::WriteGeneralStats, film.cpp:170) and, for a
 kd / RBSP / BSP tree, its node-type depth histograms; it also turns the
 traversal's counters on (`Renderer(collect_stats=True)`), which the kernels
-otherwise leave out."""
+otherwise leave out.
+
+--mesh shards whole wavefront batches over the processes of a
+torch.distributed job, one process a card (parallel/mesh.py
+`ShardedRenderer`): under torchrun it reads the job from the environment;
+--distributed HOST:PORT (or an init-method URL such as file:///path) joins
+the job there as process --host-id of --num-hosts, and implies --mesh; start
+one such process a card, on each host. With --cpu the processes run on the
+CPU over gloo. Every process renders its batches and the films are summed;
+only rank 0 writes the image and prints the statistics. A job of one
+process renders as without --mesh. mlt and sppm are not sharded: each
+process renders the whole image through its driver, as the JAX package's
+CLI does."""
 
 from __future__ import annotations
 
@@ -125,6 +140,16 @@ def main(argv=None) -> int:
                     help="append the log lines to a file")
     ap.add_argument("--loglevel", default="info",
                     choices=["debug", "info", "warning", "error"])
+    ap.add_argument("--mesh", action="store_true",
+                    help="shard wavefront batches over the processes of a "
+                         "torch.distributed job (torchrun), one a card")
+    ap.add_argument("--distributed", default=None, metavar="HOST:PORT",
+                    help="join a job of --num-hosts processes there (or at "
+                         "an init-method URL) as --host-id; implies --mesh")
+    ap.add_argument("--num-hosts", type=int, default=None,
+                    help="processes in the job (one a card)")
+    ap.add_argument("--host-id", type=int, default=None,
+                    help="this process's rank in the job")
     args = ap.parse_args(argv)
 
     tlog.set_level(args.loglevel)
@@ -134,6 +159,29 @@ def main(argv=None) -> int:
         tlog.set_level("error")
         warnings.simplefilter("ignore")
 
+    device = "cpu" if args.cpu else "cuda"
+    mesh = None
+    if args.distributed is not None or (args.mesh
+                                        and "WORLD_SIZE" in os.environ):
+        from tpupt_torch.parallel.mesh import init_distributed, make_mesh
+
+        rank, world = init_distributed(args.distributed, args.num_hosts,
+                                       args.host_id, device=device)
+        mesh = make_mesh()
+        if not args.quiet:
+            print(f"distributed: process {rank} of {world} on {mesh.device}",
+                  flush=True)
+    try:
+        return _render(args, mesh, device)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _render(args, mesh, device) -> int:
+    lead = mesh is None or mesh.rank == 0
     t0 = time.time()
     desc = parse_file(args.scene)
     if args.cat or args.toply:
@@ -167,11 +215,12 @@ def main(argv=None) -> int:
               f"{scene.triangles.count} triangles, {scene.spheres.count} "
               f"quadrics, {scene.lights.count} lights")
     t0 = time.time()
-    renderer = Renderer(scene, device="cpu" if args.cpu else "cuda",
+    renderer = Renderer(scene, device=mesh.device if mesh else device,
                         collect_stats=args.stats or args.writestats,
                         spectral=args.spectral)
     t1 = time.time()
     spp = args.spp or scene.sampler.spp
+    verbose = lead and not args.quiet
     with (tlog.profile_to(args.profile) if args.profile
           else contextlib.nullcontext()):
         name = scene.integrator.name
@@ -180,20 +229,28 @@ def main(argv=None) -> int:
 
             mr = MLTRenderer(renderer)
             img = mr.render(mutations_per_pixel=max(spp * 8, 32),
-                            verbose=not args.quiet)
+                            verbose=verbose)
             film = mr.film  # the estimate as splats, splatScale 1
             renderer._spp_rendered = 1
         elif name == "sppm":
             from tpupt_torch.integrators.sppm import SPPMRenderer
 
             sr = SPPMRenderer(renderer)
-            img = sr.render(n_iterations=max(spp, 4), verbose=not args.quiet)
+            img = sr.render(n_iterations=max(spp, 4), verbose=verbose)
             film = sr.film  # the estimate in rgb with unit weights
             renderer._spp_rendered = 1
+        elif mesh is not None and mesh.size > 1:
+            from tpupt_torch.parallel.mesh import ShardedRenderer
+
+            sr = ShardedRenderer(scene, mesh, base=renderer)
+            film = sr.render(spp=spp, verbose=verbose)
+            img = sr.image(film)
         else:
-            film = renderer.render(spp=spp, verbose=not args.quiet)
+            film = renderer.render(spp=spp, verbose=verbose)
             img = renderer.image(film)
     t2 = time.time()
+    if not lead:
+        return 0
     out = args.outfile or os.path.splitext(
         os.path.basename(scene.film.filename))[0] + ".png"
     write_image(out, img)
