@@ -79,14 +79,21 @@ interface box, a tinted glass statue) and holds both entry points of K6,
 the grid-medium tracking kernel (`tr_grid`, `sample_distance_grid`),
 against their plain loops, bit for bit (`interacted`, t and the
 transmittance), on 262,144 lanes started in the plume and on the
-dead-heavy, all-dead, one-lane and 131,073-lane batches.
+dead-heavy, all-dead, one-lane and 131,073-lane batches; and K6's backward
+(`tr_grid_backward`, the adjoint of ratio tracking) against its plain
+version for a seeded cotangent on the same lanes and batches and on two
+more, the plume made dense enough for factors of exactly 0 and half its
+texels emptied (the tie of max(x, 0)): the per-lane gradients to the bit,
+the atlas gradient (summed by atomics) within a stated tolerance.
 The `media` phase renders `spectral_museum` (60-bin spectral transport,
 saturated rows under a blackbody light) through K1 and `fog_museum`
 (volpath) through K1 and K6 at 1024x1024, beside the static museum in the
 same phase, each against the plain versions on the crop; holds K6 against
 its plain loops and times it on every call of the fog museum's middle
-batch; and takes a 1-spp `value_and_grad` of each (the film linear in
-light_L).
+batch, its backward on each tr_grid call of that batch; and takes a 1-spp
+`value_and_grad` of each (the film linear in light_L), the fog museum's
+with respect to every float medium table too (K6's backward launched once a
+tr_grid call of pass 2), against the plain versions on the crop.
 The `integrators` phase renders the small museum through K1 at 1024x1024
 and depth 5 under the direct-lighting ("one"), Whitted, ambient-occlusion
 and BDPT integrators (1 spp each, BDPT's t == 1 strategies into the film's
@@ -95,7 +102,10 @@ mutation a pixel) and with SPPM (`SPPMRenderer`: one iteration of one
 photon a pixel), each with the launch counts set to 0 just before and read
 just after and held to the calls its loops make; before them, every K1
 call of one BDPT batch, one MLT mutation step and one SPPM photon chunk is
-held bit for bit against the plain walker.
+held bit for bit against the plain walker. Each of the first four also
+takes a 1-spp `value_and_grad` at 256x256 (BDPT's loss on its splats too):
+finite gradients, the film linear in light_L (AO's reads no table: its
+gradients 0).
 The `mesh` phase drives `parallel/mesh.py` on this one card: two ranks
 spawned as processes of their own over gloo (two NCCL ranks cannot share a
 card) render the small museum at 1024x1024 through `ShardedRenderer`, each
@@ -256,11 +266,13 @@ DELTA_ROW_BYTES, TIME_BYTES, OPS_PER_LERP = 48, 4, 18
 # and fog_museum (volpath; a FOG_GRID_RES^3 grid plume) at MUSEUM_65K's
 # size, SPP_MEDIA samples each through K1 (and K6), against the plain
 # versions on PLAIN_CROP; one fwd+bwd sample each: the spectral museum with
-# respect to GRAD_PARAMS, the fog museum to MEDIA_PARAMS (K6 carries no
-# gradient through the ray, so the tables that move rays are left out)
+# respect to GRAD_PARAMS, the fog museum to MEDIA_PARAMS (every float
+# medium table with them: a grid medium's transmittance through K6's
+# backward), the fog museum's also against the plain versions on the crop
 SPP_MEDIA = 1
 FOG_GRID_RES = 128
-MEDIA_PARAMS = ("mat_kd", "light_L")
+MEDIA_PARAMS = ("mat_kd", "light_L", "med_sigma_a", "med_sigma_s", "med_g",
+                "med_majorant", "med_density", "med_w2m")
 # K6 against its plain version: interacted equal on every lane, t and the
 # transmittance within K6_ULP_LIMIT ulps (0: to the bit)
 K6_ULP_LIMIT = 0
@@ -280,7 +292,28 @@ K6_REPLACES = {
                "XLA; no Pallas kernel)",
     "sample_distance_grid": "tpupt/media/media.py:379 (sample_distance_"
                             "lane's delta-tracking loop, XLA; no Pallas "
-                            "kernel)"}
+                            "kernel)",
+    "tr_grid_backward": "tpupt/media/media.py:326-337 (jax.grad of tr_lane's "
+                        "ratio-tracking loop, XLA; no Pallas kernel)"}
+# K6's backward against its plain version (tr_grid_backward_plain): the
+# per-lane outputs to the bit; the density atlas's gradient, summed by
+# atomics in no fixed order (a texel takes the terms of every step of every
+# lane that reads it), within K6_ATLAS_REL of its largest absolute value.
+# Its operations, counted by hand in the source: the forward walk's (a step
+# and a lookup as `tr_grid`'s, two more a step for the sum of draws) and a
+# step of the walk back (the lookup again with its eight corners' indices,
+# the adjoint of the product, the trilinear weights, the world-to-medium
+# rows and the point; eight atomic adds); what a lane writes (20 floats)
+# and reads beside the forward's inputs (its cotangent)
+K6_ATLAS_REL = 1e-5
+K6_BWD_OPS_PER_STEP = OPS_PER_TRACK_STEP + 2
+K6_BWD_OPS_PER_LOOKUP = K6_OPS_PER_LOOKUP["tr_grid"] + 344
+K6_BWD_OUT_BYTES, K6_BWD_IN_BYTES = 80, 4
+# the edge batches of K6's backward beyond the forward's: the plume's
+# density K6_ZERO_FACTOR_SCALE times itself under the same majorant (steps
+# whose factor is exactly 0), and the lower half of the plume's texels
+# emptied (the tie of max(x, 0) at x == 0)
+K6_ZERO_FACTOR_SCALE = 4.0
 # the integrators phase: the small museum at MAIN_RES and its depth (5)
 # through K1 under the direct-lighting ("one" light a vertex: Whitted runs
 # the "all" strategy; "all" before the mesh phase came), Whitted,
@@ -293,6 +326,10 @@ K6_REPLACES = {
 MLT_MUTATIONS = 1
 SPPM_ITERATIONS = 1
 INTEGRATORS = ("directlighting", "whitted", "ambientocclusion", "bdpt")
+# and value_and_grad of each of INTEGRATORS at INTEGRATOR_GRAD_RES (1 spp,
+# the loss sum(film.rgb) + sum(film.splat), with respect to GRAD_PARAMS):
+# the film linear in light_L (AO's reads no table: every gradient 0)
+INTEGRATOR_GRAD_RES = 256
 # the mesh phase: the small museum at MAIN_RES through a one-rank NCCL
 # ShardedRenderer (its film against the main path's render of the same
 # museum), and through two ranks spawned over gloo on this one card (the
@@ -974,7 +1011,8 @@ def main(argv) -> int:
         check_k6(lanes_fog, checks, fmad_libs["media_tracking"])
         half_fog = (lanes_fog[0],) + tuple(
             x[N_CHECK_RAYS // 2:].contiguous() for x in lanes_fog[1:])
-        k6_shape = {kind: k6_timing(kind, half_fog) for kind in mtk.launches}
+        k6_shape = {kind: k6_timing(kind, half_fog) for kind in mtk.FORWARD}
+        check_k6_backward(lanes_fog, sc_fog, checks)
         k6_checks_s = time.time() - t0
         del lanes_fog, half_fog
         treelet_edges = [c for base in treelet_cases
@@ -1402,7 +1440,7 @@ def main(argv) -> int:
                     else "one driver call: pass 0 + pass 1, two launches"),
             "tolerance": "every output equal to the bit"})
     fm = med["fog_museum"]
-    for kind in mtk.launches:
+    for kind in mtk.FORWARD:
         at = fm["k6_at_main_shape"][kind]
         mean = at["mean_per_call"]
         sec = k6_shape[kind]
@@ -1429,6 +1467,34 @@ def main(argv) -> int:
                                     "live_lanes")},
             "tolerance": f"interacted equal on every lane, t / transmittance "
                          f"<= {K6_ULP_LIMIT} ulp"})
+    at = fm["k6_at_main_shape"]["tr_grid_backward"]
+    mean = at["mean_per_call"]
+    kernels.append({
+        "name": "tr_grid_backward", "route": "cuda",
+        "source": "tpupt_torch/csrc/media_tracking.cu",
+        "replaces": K6_REPLACES["tr_grid_backward"],
+        "launches": fm["gradients"]["launches"]["tr_grid_backward"],
+        "max_abs_err": max(
+            [c["max_abs_err"] for tag, c in checks.items()
+             if tag.startswith("tr_grid_backward/")] + [at["max_abs_err"]]),
+        "ms": mean["kernel_alone_ms"], "plain_ms": mean["plain_ms"],
+        "bound_ms": mean["bound_ms"],
+        "bound_by": at["bound_by_calls"].most_common(1)[0][0],
+        "library_ms": None,
+        "per": "mean over the tr_grid calls of the fog museum's middle batch "
+               "of sample 0, a seeded cotangent each (ms: the kernel alone; "
+               "launches: the fog museum's fwd+bwd sample)",
+        "call_ms": mean["kernel_ms"], "calls_timed": at["calls"],
+        "lanes_per_launch": at["lanes"], "live_lanes": mean["live"],
+        "atlas_max_rel_err": max(
+            [c["atlas_rel_err"] for tag, c in checks.items()
+             if tag.startswith("tr_grid_backward/")]
+            + [at["atlas_rel_err"]]),
+        "crop_launches": fm["gradients"]["crop_launches"][
+            "tr_grid_backward"],
+        "tolerance": f"per-lane outputs equal to the bit; the atlas (atomics "
+                     f"in no fixed order) within {K6_ATLAS_REL} of its "
+                     f"largest"})
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     print(card_line, flush=True)
     emit({"kernels": kernels})
@@ -2937,7 +3003,7 @@ def check_k6(lanes, checks, fmad_lib):
     the full set (reported, not held: PyTorch's own kernels are built with
     contraction allowed)."""
     cases = [("fog_museum", lanes)] + fog_edge_lanes(lanes, 59)
-    for kind in mtk.launches:
+    for kind in mtk.FORWARD:
         for name, ln in cases:
             t0 = time.time()
             plain = k6_plain(kind, ln)
@@ -2954,6 +3020,148 @@ def check_k6(lanes, checks, fmad_lib):
                     k6_call(kind, ln, lib=fmad_lib), plain, limit=-1)
         if checks[f"{kind}/fog_museum"]["live"] < 100000:
             fail(f"K6 {kind}: the check lanes are hardly live")
+
+
+def k6_cotangent(lanes, seed):
+    """A seeded cotangent (N,) of a tr_grid call's transmittance."""
+    n = lanes[1].shape[0]
+    g = np.random.default_rng(seed).uniform(-1.0, 1.0, n).astype(np.float32)
+    return torch.from_numpy(g).to(lanes[2].device)
+
+
+def k6_backward_call(lanes, g, lib=None):
+    """K6's backward through its wrapper: (g_lane (N, 20), g_density)."""
+    mt, med, o, d, t_c, keys = lanes
+    mi, live = k6_live(mt, med)
+    return mtk.tr_grid_backward(mt, mi, o, d, t_c, keys, live, g, lib=lib)
+
+
+def k6_backward_plain(lanes, g):
+    mt, med, o, d, t_c, keys = lanes
+    mi, live = k6_live(mt, med)
+    return mmod.tr_grid_backward_plain(mt, mi, o, d, t_c, keys, g, live)
+
+
+def compare_k6_backward(tag, lanes, out, plain):
+    """K6's backward against its plain version: the per-lane outputs to the
+    bit, the atlas within K6_ATLAS_REL of its largest; fails the run
+    otherwise."""
+    (gl_k, ga_k), (gl_p, ga_p) = out, plain
+    _, live = k6_live(lanes[0], lanes[1])
+    differ = (as_bits(gl_k) != as_bits(gl_p)).any(1)
+    scale = float(ga_p.abs().max())
+    atlas_err = float((ga_k - ga_p).abs().max())
+    res = {"lanes": int(live.shape[0]), "live": int(live.sum()),
+           "lanes_differing": int(differ.sum()),
+           "max_abs_err": float((gl_k - gl_p).abs().max()),
+           "lane_grad_abs_max": float(gl_p.abs().max()),
+           "atlas_abs_max": scale, "atlas_max_abs_err": atlas_err,
+           "atlas_rel_err": atlas_err / scale if scale > 0 else 0.0,
+           "texels_with_gradient": int((ga_p != 0).sum())}
+    if res["lanes_differing"] or atlas_err > K6_ATLAS_REL * scale:
+        fail(f"K6 tr_grid_backward disagrees with its plain version on "
+             f"{tag}: {res}")
+    return res
+
+
+def k6_factor_census(lanes):
+    """Among the live lanes' steps before t_c: those whose x (density times
+    mean extinction over the majorant) is exactly 0 (the tie of max(x, 0))
+    and those whose factor 1 - max(x, 0) is 0 (x >= 1)."""
+    mt, med, o, d, t_c, keys = lanes
+    mi, live = k6_live(mt, med)
+    inv_m, sig_m = mmod.tracking_constants(mt)
+    inv, sig = inv_m[mi], sig_m[mi]
+    t = torch.zeros_like(t_c)
+    ties = zeros = 0
+    for k in range(mmod.TR_STEPS):
+        u = rng_mod.uniform_float(keys, k, mmod.TR_WORD)
+        t = t - torch.log(1.0 - u) * inv
+        act = live & (t < t_c)
+        x = mmod.grid_density_lane(mt, mi, o + t[:, None] * d) * sig * inv
+        ties += int((act & (x == 0.0)).sum())
+        zeros += int((act & (x >= 1.0)).sum())
+    return {"steps_at_the_tie": ties, "steps_with_a_zero_factor": zeros}
+
+
+def check_k6_backward(lanes, scene, checks):
+    """K6's backward against its plain version on the fog museum's check
+    lanes, the forward's edge batches (98 % dead, all dead, one lane,
+    131,073 lanes) and two more: the plume's density K6_ZERO_FACTOR_SCALE
+    times itself under the same majorant (factors of exactly 0) and the
+    lower half of the plume's texels emptied (x == 0, the tie)."""
+    mt = lanes[0]
+    plume = scene.media_order.index("plume")
+    nx, ny, nz = (int(v) for v in mt.dens_dims[plume])
+    off = int(mt.dens_off[plume])
+    dense, empty = mt.density.clone(), mt.density.clone()
+    dense[off:off + nx * ny * nz] *= K6_ZERO_FACTOR_SCALE
+    empty[off:off + nx * ny * (nz // 2)] = 0.0
+    cases = [("fog_museum", lanes)] + fog_edge_lanes(lanes, 59) + [
+        ("zero_factors", (mt._replace(density=dense),) + lanes[1:]),
+        ("empty_texels", (mt._replace(density=empty),) + lanes[1:])]
+    for i, (name, ln) in enumerate(cases):
+        g = k6_cotangent(ln, 67 + i)
+        t0 = time.time()
+        plain = k6_backward_plain(ln, g)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        out = k6_backward_call(ln, g)
+        torch.cuda.synchronize()
+        res = compare_k6_backward(f"tr_grid_backward/{name}", ln, out, plain)
+        res["plain_ms"] = plain_ms
+        if name in ("fog_museum", "zero_factors", "empty_texels"):
+            res.update(k6_factor_census(ln))
+        checks[f"tr_grid_backward/{name}"] = res
+    got = checks["tr_grid_backward/zero_factors"]["steps_with_a_zero_factor"]
+    ties = checks["tr_grid_backward/empty_texels"]["steps_at_the_tie"]
+    if got < 1000 or ties < 1000:
+        fail(f"K6 backward's edge batches are vacuous: {got} zero factors, "
+             f"{ties} steps at the tie")
+
+
+def k6_backward_bound(lanes, work, texels_written):
+    """The least time of K6's backward on `lanes`: the forward's inputs of
+    each live lane and its cotangent, every lane's 20 outputs and the dead
+    lanes' live byte, each distinct texel read once and each texel of the
+    atlas gradient written once, over the memory rate; or the forward walk's
+    and the walk back's operations (K6_BWD_OPS_PER_STEP a step,
+    K6_BWD_OPS_PER_LOOKUP a lookup) over the float32 rate."""
+    n = lanes[1].shape[0]
+    live = work["live_lanes"]
+    bytes_moved = ((LANE_IN_BYTES + K6_BWD_IN_BYTES) * live + (n - live)
+                   + K6_BWD_OUT_BYTES * n
+                   + TEXEL_BYTES * (work["distinct_texels"] + texels_written))
+    ops = (K6_BWD_OPS_PER_STEP * work["steps"]
+           + K6_BWD_OPS_PER_LOOKUP * work["lookups"])
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_OPS_PER_S * 1e3
+    return {**work, "texels_written": texels_written,
+            "bytes_moved_at_least": bytes_moved, "ops": ops,
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def k6_backward_timing(lanes, seed):
+    """K6's backward on one recorded call's lanes for a seeded cotangent:
+    against its plain version, the wrapper call and the kernel alone (CUDA
+    events), the plain version's call, and the bound."""
+    g = k6_cotangent(lanes, seed)
+    t0 = time.time()
+    plain = k6_backward_plain(lanes, g)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    res = compare_k6_backward(f"tr_grid_backward/main_path/{seed}", lanes,
+                              k6_backward_call(lanes, g), plain)
+    lib = mtk.get_lib()
+    res.update(
+        kernel_ms=time_ms(lambda: k6_backward_call(lanes, g), 10),
+        kernel_alone_ms=kernel_alone_ms(
+            lambda lib_: k6_backward_call(lanes, g, lib=lib_), lib, reps=5),
+        plain_ms=plain_ms,
+        **k6_backward_bound(lanes, k6_work("tr_grid", lanes),
+                            res["texels_with_gradient"]))
+    return res
 
 
 def k6_texels(mt, mi, p):
@@ -3051,14 +3259,20 @@ def k6_timing(kind, lanes, keep_plain=None):
 
 @contextlib.contextmanager
 def plain_tracking():
-    """The media functions run K6's plain versions instead of its wrappers
-    (for the plain-version render; media.py looks the wrappers up at each
-    call)."""
-    saved = {k: getattr(mtk, k) for k in mtk.launches}
-    mtk.tr_grid = lambda mt, mi, o, d, t_c, keys, live, lib=None: (
+    """K6's wrappers and autograd Functions run its plain versions (the two
+    loops forward, tr_grid_backward_plain backward) instead of launching it
+    (for the plain-version renders and fwd+bwd; the wrappers look their
+    launchers up at each call)."""
+    names = ("_tr_grid", "_sample_distance_grid", "tr_grid_backward")
+    saved = {k: getattr(mtk, k) for k in names}
+    mtk._tr_grid = lambda mt, mi, o, d, t_c, keys, live, lib=None: (
         mmod.tr_grid_plain(mt, mi, o, d, t_c, keys))
-    mtk.sample_distance_grid = lambda mt, mi, o, d, t_c, keys, live, lib=None: (
+    mtk._sample_distance_grid = (
+        lambda mt, mi, o, d, t_c, keys, live, lib=None:
         mmod.sample_distance_grid_plain(mt, mi, o, d, t_c, keys))
+    mtk.tr_grid_backward = (
+        lambda mt, mi, o, d, t_c, keys, live, g_trg, lib=None:
+        mmod.tr_grid_backward_plain(mt, mi, o, d, t_c, keys, g_trg, live))
     try:
         yield
     finally:
@@ -3070,8 +3284,8 @@ def recorded_tracking(r, b):
     """Every K6 call of batch `b` of sample 0 of renderer `r`, as the lanes
     (mt, med, o, d, t_c, keys) it was handed (the main path's own shapes
     and data), by entry point."""
-    calls = {k: [] for k in mtk.launches}
-    saved = {k: getattr(mtk, k) for k in mtk.launches}
+    calls = {k: [] for k in mtk.FORWARD}
+    saved = {k: getattr(mtk, k) for k in mtk.FORWARD}
 
     def recorder(kind):
         def rec(mt, mi, o, d, t_c, keys, live, lib=None):
@@ -3081,7 +3295,7 @@ def recorded_tracking(r, b):
                                 keys.clone()))
             return saved[kind](mt, mi, o, d, t_c, keys, live, lib=lib)
         return rec
-    for k in mtk.launches:
+    for k in mtk.FORWARD:
         setattr(mtk, k, recorder(k))
     try:
         with torch.no_grad():
@@ -3096,9 +3310,24 @@ def k6_main_shape(r):
     """K6 on the calls of the middle batch of the fog museum's sample 0:
     each call against its plain version (every output, to K6_ULP_LIMIT),
     and per entry point the mean over its calls of the wrapper call, the
-    kernel alone, the plain version and the bound."""
+    kernel alone, the plain version and the bound; the backward on each
+    tr_grid call's lanes for a seeded cotangent the same way."""
     calls = recorded_tracking(r, r.n_batches // 2)
     out = {}
+    rows = [k6_backward_timing(lanes, 71 + i)
+            for i, lanes in enumerate(calls["tr_grid"])]
+    out["tr_grid_backward"] = {
+        "calls": len(rows), "lanes": rows[0]["lanes"],
+        "mean_per_call": {k: sum(row[k] for row in rows) / len(rows)
+                          for k in ("kernel_ms", "kernel_alone_ms",
+                                    "plain_ms", "bound_ms", "live", "steps",
+                                    "lookups", "distinct_texels",
+                                    "texels_written")},
+        "bound_by_calls": collections.Counter(row["bound_by"]
+                                              for row in rows),
+        "lanes_differing": sum(row["lanes_differing"] for row in rows),
+        "max_abs_err": max(row["max_abs_err"] for row in rows),
+        "atlas_rel_err": max(row["atlas_rel_err"] for row in rows)}
     for kind, lanes_list in calls.items():
         if not lanes_list:
             fail(f"the fog museum's batch made no {kind} call")
@@ -3204,13 +3433,27 @@ def media(dev, static_museum, fog, with_profile) -> dict:
                    np.abs(img_k - img_p).max())}
     del rk, rp
     # pass 2 of value_and_grad replays traversal from pass 1's record but
-    # runs the shading chain again, K6 with it: twice a batch
+    # runs the shading chain again, K6 with it: twice a batch; K6's
+    # backward once a tr_grid call of pass 2
     grads_f = emitter_grads(
         grad_renderer(scene, tables, dev),
         {k: getattr(ds, k) for k in MEDIA_PARAMS}, 1, ("light_L",),
         LINEARITY_RTOL, "fog", per_batch={
+            **{k: v * (1 if k == "traverse_wide" else 2)
+               for k, v in per_batch.items()},
+            "tr_grid_backward": per_batch["tr_grid"]})
+    grads_f.update(fog_grads_against_plain(scene, tables, dev))
+    # the same fwd+bwd without the medium tables (K6's forward only), in
+    # this run: what differentiating the media costs
+    without = emitter_grads(
+        grad_renderer(scene, tables, dev),
+        {k: getattr(ds, k) for k in ("mat_kd", "light_L")}, 1, ("light_L",),
+        LINEARITY_RTOL, "fog without medium tables", per_batch={
             k: v * (1 if k == "traverse_wide" else 2)
             for k, v in per_batch.items()})
+    grads_f["without_medium_tables"] = {
+        k: without[k] for k in ("params", "fwd_bwd_ms_per_spp",
+                                "peak_allocated_bytes", "launches")}
     profiled = ({"profile_fog_spp": profile_one_spp(lambda: r.render(spp=1))}
                 if with_profile else {})
     batches = r.n_batches
@@ -3245,6 +3488,85 @@ def media(dev, static_museum, fog, with_profile) -> dict:
             "image_mean_rgb": [float(x) for x in img_f.reshape(-1, 3).mean(0)],
             **plain_f, "k6_at_main_shape": main_shape,
             "gradients": grads_f, **profiled}}
+
+
+def fog_grads_against_plain(scene, tables, dev) -> dict:
+    """value_and_grad of `bench_loss` over PLAIN_CROP of the fog museum with
+    respect to MEDIA_PARAMS through K1 and K6 (its backward too) and
+    through their plain versions, on the same tables: per table the
+    largest difference over the largest gradient, held to GRAD_VS_PLAIN
+    (the film's and the atlas's atomics sum in no fixed order)."""
+    crop = dataclasses.replace(
+        scene, film=dataclasses.replace(scene.film, crop=PLAIN_CROP))
+    kinds = ("traverse_wide", "tr_grid", "sample_distance_grid",
+             "tr_grid_backward")
+    out = {}
+    for name in ("kernel", "plain"):
+        before = launch_counts()
+        t0 = time.time()
+        with plain_tracking() if name == "plain" else contextlib.nullcontext():
+            r = Renderer(crop, device=dev, tables=tables,
+                         isect=(plain_traversal("traverse_wide")
+                                if name == "plain" else None))
+            out[name] = r.value_and_grad(
+                bench_loss, {k: getattr(r.ds, k) for k in MEDIA_PARAMS})
+        torch.cuda.synchronize()
+        out[name + "_s"] = time.time() - t0
+        ran = {k: launch_counts()[k] - before[k] for k in kinds}
+        if (min(ran.values()) > 0) != (name == "kernel") or (
+                name == "plain" and max(ran.values()) > 0):
+            fail(f"the fog museum's cropped value_and_grad through the "
+                 f"{name} versions launched {ran}")
+        out[name + "_launches"] = ran
+    (vk, gk, _), (vp, gp, _) = out["kernel"], out["plain"]
+    rel = {k: float((gk[k] - gp[k]).abs().max()
+                    / gp[k].abs().max().clamp_min(1e-30)) for k in gp}
+    if not max(rel.values()) <= GRAD_VS_PLAIN:
+        fail(f"the fog museum's gradients through the kernels differ from "
+             f"those through the plain versions: {rel}")
+    return {"crop": PLAIN_CROP, "crop_loss_kernel": float(vk),
+            "crop_loss_plain": float(vp),
+            "crop_grad_max_rel_kernel_vs_plain": rel,
+            "crop_grad_rel_bound": GRAD_VS_PLAIN,
+            "crop_launches": out["kernel_launches"],
+            "crop_plain_fwd_bwd_s": round(out["plain_s"], 1)}
+
+
+def integrator_grads(static_museum, dev, name, k1_calls) -> dict:
+    """value_and_grad of sum(film.rgb) + sum(film.splat) with respect to
+    GRAD_PARAMS, the small museum at INTEGRATOR_GRAD_RES under integrator
+    `name` (direct lighting with one light a vertex), K1 launched `k1_calls`
+    times a batch (pass 1; pass 2 replays) and nothing else; every gradient
+    finite, sum(light_L * g) = loss (AO: every gradient 0, its image reads
+    no table)."""
+    sc, t = at_resolution_scene(*static_museum, INTEGRATOR_GRAD_RES)
+    extra = {"strategy": "one"} if name == "directlighting" else {}
+    sc = dataclasses.replace(sc, integrator=dataclasses.replace(
+        sc.integrator, name=name, **extra))
+    r = Renderer(sc, device=dev, tables=t)
+    params = {k: getattr(r.ds, k) for k in GRAD_PARAMS}
+    (value, grads, _), sec, counts, peak = counted(
+        lambda: r.value_and_grad(lambda f: f.rgb.sum() + f.splat.sum(),
+                                 params), k1_calls * r.n_batches)
+    v = float(value)
+    lin = float((grads["light_L"] * params["light_L"]).sum())
+    for k, g in grads.items():
+        if not bool(torch.isfinite(g).all()):
+            fail(f"{name} gradients: d loss / d {k} is not finite")
+    if name == "ambientocclusion":
+        if any(bool(g.any()) for g in grads.values()):
+            fail("ambient occlusion's gradients are not 0")
+    elif not (abs(lin - v) <= LINEARITY_RTOL * abs(v)
+              and float(grads["mat_kd"].abs().max()) > 0):
+        fail(f"{name} gradients: sum(light_L * g) = {lin}, loss {v}, "
+             f"mat_kd's largest {float(grads['mat_kd'].abs().max())}")
+    return {"resolution": [INTEGRATOR_GRAD_RES] * 2, "params": GRAD_PARAMS,
+            "loss": "sum(film.rgb) + sum(film.splat)",
+            "fwd_bwd_ms_per_spp": sec * 1e3, "launches": counts, **peak,
+            "value": v, "sum_light_L_times_grad": lin,
+            "linearity_rtol": LINEARITY_RTOL,
+            "grad_abs_max": {k: float(g.abs().max())
+                             for k, g in grads.items()}}
 
 
 def checking_wide(tag, calls):
@@ -3374,6 +3696,8 @@ def integrators(dev, static_museum) -> dict:
                      **({"splat_sum": float(film.splat.sum())}
                         if name == "bdpt" else {})}
         del film, r
+        out[name]["gradients"] = integrator_grads(static_museum, dev, name,
+                                                  calls[name])
 
     # ---- MLT: one mutation step through the checking isect, then the
     # render (the bootstrap: one batch a depth)

@@ -183,8 +183,9 @@ def test_the_motion_camera_and_tool_modules_are_among_them():
 def test_the_spectral_and_media_modules_are_among_them():
     """The spectral and media slice: the spectrum tables (the CIE data file
     copied beside them), the media, the volpath integrator and K6's wrapper
-    import without a card, without building anything and without jax or
-    tpupt; K6's launch counts start at 0."""
+    with its backward (the autograd Functions, the backward entry point and
+    its plain version) import without a card, without building anything
+    and without jax or tpupt; K6's launch counts start at 0."""
     names = set(_module_names())
     assert {"tpupt_torch.core.spectrum", "tpupt_torch.media.media",
             "tpupt_torch.integrators.volpath",
@@ -194,9 +195,13 @@ def test_the_spectral_and_media_modules_are_among_them():
         "import tpupt_torch.ops.media_tracking as k6\n"
         "from tpupt_torch.core import spectrum\n"
         "from tpupt_torch.integrators.volpath import volpath_li\n"
-        "from tpupt_torch.media.media import tr_lane, sample_distance_lane\n"
+        "from tpupt_torch.media.media import (tr_lane, sample_distance_lane, "
+        "tr_grid_backward_plain)\n"
+        "from tpupt_torch.ops.media_tracking import (TrGrid, "
+        "SampleDistanceGrid, tr_grid_backward)\n"
         "assert k6._LIB is None\n"
-        "assert k6.launches == {'tr_grid': 0, 'sample_distance_grid': 0}\n"
+        "assert k6.launches == {'tr_grid': 0, 'sample_distance_grid': 0, "
+        "'tr_grid_backward': 0}\n"
         "assert spectrum.smits_tables() is not None\n"
         "print('JAX', any(m.split('.')[0] in ('jax', 'jaxlib', 'tpupt') "
         "for m in sys.modules))\n")
@@ -212,7 +217,8 @@ def test_the_spectral_and_media_modules_are_among_them():
 
 def test_the_integrator_modules_are_among_them():
     """The other integrators: direct lighting / Whitted / AO, BDPT, MLT and
-    SPPM import without a card and without jax or tpupt, and the film
+    SPPM import without a card and without jax or tpupt, every integrator
+    `Renderer` renders is among those it differentiates, and the film
     has its splats."""
     names = set(_module_names())
     assert {"tpupt_torch.integrators.direct", "tpupt_torch.integrators.bdpt",
@@ -227,7 +233,9 @@ def test_the_integrator_modules_are_among_them():
         "from tpupt_torch.integrators.sppm import SPPMRenderer\n"
         "from tpupt_torch.film.film import add_splats\n"
         "from tpupt_torch.integrators.path import GRADIENT_INTEGRATORS\n"
-        "assert GRADIENT_INTEGRATORS == ('path', 'volpath')\n"
+        "assert set(GRADIENT_INTEGRATORS) == {'path', 'volpath', "
+        "'directlighting', 'whitted', 'ambientocclusion', 'bdpt', 'mlt', "
+        "'sppm'}\n"
         "print('JAX', any(m.split('.')[0] in ('jax', 'jaxlib', 'tpupt') "
         "for m in sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -197,25 +197,25 @@ def test_renderer_refuses_unported_configurations(what, tmp_path, monkeypatch):
     from tpupt_torch.accel import kdbsp
 
     _, sc = _scenes("smoke", tmp_path)
-    refusal = pytest.raises(NotImplementedError, match="ROADMAP")
     if what == "integrator":
         # the other integrators render (tests/test_torch_direct.py,
-        # test_torch_bdpt.py, ...); what is refused is their gradients
+        # test_torch_bdpt.py, ...) and, since their gradients were ported,
+        # differentiate: BDPT's come back finite, the film linear in L
         sc = dataclasses.replace(
             sc, integrator=dataclasses.replace(sc.integrator, name="bdpt"))
         r = Renderer(sc, device="cpu")
-        with refusal:
-            r.value_and_grad(lambda f: f.rgb.sum(),
-                             {"light_L": r.ds.light_L})
+        v, g, _ = r.value_and_grad(
+            lambda f: f.rgb.sum() + f.splat.sum(), {"light_L": r.ds.light_L})
+        assert bool(torch.isfinite(g["light_L"]).all()) and float(v) > 0
+        np.testing.assert_allclose(
+            float((g["light_L"] * r.ds.light_L).sum()), float(v), rtol=1e-4)
         return
-    elif what == "accelerator":
-        # the kd / RBSP / BSP accelerators render; what is refused is a tree
-        # deeper than the traversal stack
-        sc = dataclasses.replace(sc, accelerator_name="kdtree")
-        Renderer(sc, device="cpu")
-        monkeypatch.setattr(kdbsp, "KD_STACK", 3)
-        refusal = pytest.raises(ValueError, match="too deep")
-    with refusal:
+    # the kd / RBSP / BSP accelerators render; what is refused is a tree
+    # deeper than the traversal stack
+    sc = dataclasses.replace(sc, accelerator_name="kdtree")
+    Renderer(sc, device="cpu")
+    monkeypatch.setattr(kdbsp, "KD_STACK", 3)
+    with pytest.raises(ValueError, match="too deep"):
         Renderer(sc, device="cpu")
 
 

@@ -156,18 +156,16 @@ def test_cuda_device_without_card_raises(tmp_path):
         upload(sc, device="cuda")
 
 
-# each feature the port still refuses: (scene lines, the step that raises,
-# the words that begin its item in ROADMAP.md's queue 1; None for a
-# refusal that is the port's design, not a missing item)
+# the features of the last refusals: (scene lines, the step it takes). The
+# other integrators' gradients and those with respect to the medium tables
+# (queue 1 items 12 and 11) were refused until they were ported and now
+# come back finite; a training step handed several devices in one process
+# is refused by design (one process drives one card: parallel/mesh.py)
 _UNPORTED = {
-    # the other integrators render; their gradients are refused
-    "integrator": ("", "training step under bdpt", "Other integrators"),
-    # several devices are several processes (parallel/mesh.py, ported with
-    # queue 1 item 13): one process handed two devices raises ValueError
-    "mesh": ("", "training step on two devices in one process", None),
+    "integrator": ("", "training step under bdpt"),
+    "mesh": ("", "training step on two devices in one process"),
     "medium_gradients": ('MakeNamedMedium "fog" "string type" "homogeneous"',
-                         "value_and_grad of a medium table",
-                         "Media and volpath"),
+                         "value_and_grad of a medium table"),
 }
 
 # features the port refused until they were ported: (scene lines, header
@@ -202,68 +200,50 @@ _PORTED = {
 }
 
 
-def _roadmap_item(words: str) -> int:
-    """The number of the item of ROADMAP.md's queue 1 that begins with
-    `words` (after its bold mark)."""
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with open(os.path.join(root, "ROADMAP.md")) as f:
-        text = f.read()
-    queue = text[text.index("### 1. Modules to port"):]
-    queue = queue[:queue.index("\n### 2.")]
-    import re
-    found = re.findall(r"^(\d+)\. \*\*" + re.escape(words), queue, re.M)
-    assert len(found) == 1, words
-    return int(found[0])
-
-
 @pytest.mark.parametrize("feature", list(_UNPORTED))
 def test_unported_features_raise_not_implemented(feature):
-    """Each feature the port does not have yet (a render, or the gradients
-    of one: those of the integrators other than path and volpath) raises
-    where it is met, naming the ROADMAP.md queue 1 item that will bring
-    it. The one it will not have, a training step handed several devices
-    in one process, raises ValueError naming `init_distributed`, and the
-    same step on a list of one device trains."""
+    """The features the port refused last: the training step under BDPT
+    and the gradients with respect to a medium table now come back finite
+    (queue 1 items 12 and 11 are ported). The one refusal left is the
+    port's design, not a missing item: a training step handed several
+    devices in one process raises ValueError naming `init_distributed`,
+    and the same step on a list of one device trains."""
     from tpupt_torch.integrators.path import Renderer
     from tpupt_torch.parallel.mesh import train_step_fn
 
-    lines, where, words = _UNPORTED[feature]
-    head = {"integrator": 'Integrator "bdpt"',
-            "volpath": 'Integrator "volpath"'}.get(feature, "")
+    lines, _ = _UNPORTED[feature]
+    head = {"integrator": 'Integrator "bdpt"'}.get(feature, "")
+    light = ("" if feature == "mesh" else
+             'LightSource "distant" "point from" [0 0 5] "point to" [0 0 0]')
     txt = f"""
 Camera "perspective" "float fov" [45]
 Film "image" "integer xresolution" [8] "integer yresolution" [8]
 {head}
 WorldBegin
+{light}
 {lines}
 Shape "trianglemesh" "point P" [-1 -1 0  1 -1 0  1 1 0] "integer indices" [0 1 2]
 WorldEnd
 """
-    if words is None:
-        refusal = pytest.raises(ValueError, match="init_distributed")
-    else:
-        item = _roadmap_item(words)
-        refusal = pytest.raises(NotImplementedError,
-                                match=rf"ROADMAP\.md queue 1, item {item}\)")
-    if where == "flatten":
-        with refusal:
-            flatten(parse_string(txt))
-        return
     sc = flatten(parse_string(txt))
-    with refusal:
-        if feature == "integrator":
-            train_step_fn(sc, None, np.zeros((8, 8, 3)), device="cpu")
-        elif feature == "medium_gradients":
-            r = Renderer(sc, device="cpu")
-            r.value_and_grad(lambda f: f.rgb.sum(),
-                             {"med_sigma_a": r.ds.med_sigma_a})
-        else:
-            train_step_fn(sc, ["cpu", "cpu"], np.zeros((8, 8, 3)),
-                          device="cpu")
-    if feature == "mesh":
-        step, p0 = train_step_fn(sc, ["cpu"], np.ones((8, 8, 3)))
+    if feature == "integrator":
+        step, p0 = train_step_fn(sc, None, np.ones((8, 8, 3)), device="cpu")
         loss, new = step(p0, 0, 0.1)
-        assert float(loss) == 3.0 and set(new) == set(p0)
+        assert np.isfinite(float(loss)) and float(loss) > 0
+        assert all(bool(torch.isfinite(v).all()) for v in new.values())
+        return
+    if feature == "medium_gradients":
+        r = Renderer(sc, device="cpu")
+        _, g, _ = r.value_and_grad(lambda f: f.rgb.sum(),
+                                   {"med_sigma_a": r.ds.med_sigma_a})
+        assert g["med_sigma_a"].shape == r.ds.med_sigma_a.shape
+        assert bool(torch.isfinite(g["med_sigma_a"]).all())
+        return
+    with pytest.raises(ValueError, match="init_distributed"):
+        train_step_fn(sc, ["cpu", "cpu"], np.zeros((8, 8, 3)), device="cpu")
+    step, p0 = train_step_fn(sc, ["cpu"], np.ones((8, 8, 3)))
+    loss, new = step(p0, 0, 0.1)
+    assert float(loss) == 3.0 and set(new) == set(p0)
 
 
 def test_failed_native_build_raises(monkeypatch, tmp_path):

@@ -2,8 +2,9 @@
 package's, on the same tables (carried across with `from_numpy`) and the
 same sampler: films of a global fog, a fog sphere behind a null interface,
 a grid medium and a spectral fog sphere at 16x16, the gradients of the
-global fog's film with respect to mat_kd and light_L against `jax.vjp`,
-the refusal of gradients with respect to the medium tables, and the
+global fog's film with respect to mat_kd and light_L against `jax.vjp`
+(a medium table's too: test_torch_volpath_grad.py holds every medium
+table's gradient against `jax.vjp`), and the
 training-step divergence (the JAX package's step renders every scene with
 its path integrator and compares the raw radiance, so media do not change
 its loss and bad samples stay in it; the port's step takes the film's
@@ -183,8 +184,8 @@ def test_global_fog_film_and_gradients_match_jax(monkeypatch):
     bit changes a pixel, and its gradient: left out, as test_torch_gradients
     leaves such rays out) with respect to mat_kd and light_L against
     jax.vjp of the JAX package's film step (eager); the film is linear in
-    light_L; a med_* key raises, naming queue 1 item 11 (gradients with
-    respect to the medium tables). (The fog sphere's interfaces take seven
+    light_L; a med_* key gives a finite gradient of the same loss. (The
+    fog sphere's interfaces take seven
     loop iterations of five traversals each, four times the eager JAX
     side's time; the port's replay of them is checked on the card,
     chip_smoke.py's fog museum.)"""
@@ -211,10 +212,13 @@ def test_global_fog_film_and_gradients_match_jax(monkeypatch):
     assert float(gt["mat_kd"].abs().max()) > 1e-3
     lin = float((gt["light_L"] * rt.ds.light_L).sum())
     np.testing.assert_allclose(lin, float(vt), rtol=1e-4)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue 1, item 11\)"):
-        rt.value_and_grad(lambda f: f.rgb.sum(),
-                          {"med_sigma_s": rt.ds.med_sigma_s})
+    # a med_* key differentiates too (held against jax.vjp in
+    # test_torch_volpath_grad.py): the same loss, a finite gradient
+    vm, gm, _ = rt.value_and_grad(lambda f: (wt * f.rgb).sum(),
+                                  {"med_sigma_s": rt.ds.med_sigma_s})
+    assert torch.equal(vm, vt)
+    assert bool(torch.isfinite(gm["med_sigma_s"]).all())
+    assert float(gm["med_sigma_s"].abs().max()) > 0
 
 
 def test_train_step_divergence_on_a_fog_scene(monkeypatch):

@@ -69,8 +69,12 @@ _RR_START = 3  # bounces before RR kicks in (path.cpp:193)
 # the integrators spectral transport covers (the others warn and render RGB)
 SPECTRAL_INTEGRATORS = ("path", "volpath", "bdpt", "mlt", "directlighting",
                         "whitted", "ambientocclusion")
-# the integrators `value_and_grad` and the training step differentiate
-GRADIENT_INTEGRATORS = ("path", "volpath")
+# the integrators `value_and_grad` and the training step differentiate:
+# every one `Renderer` renders (mlt and sppm estimate with path_li there,
+# as the JAX package's step does; their own drivers, integrators/mlt.py and
+# sppm.py, have no gradient in either package)
+GRADIENT_INTEGRATORS = ("path", "volpath", "directlighting", "whitted",
+                        "ambientocclusion", "bdpt", "mlt", "sppm")
 # fixed wavefront batch: one shape of work whatever the resolution
 BATCH_RAYS = 131072
 
@@ -627,7 +631,7 @@ class Renderer:
     `MLTRenderer(renderer)` and sppm.py `SPPMRenderer(renderer)`; inside
     this sample loop they, and any other name, estimate with `path_li`, as
     the JAX package's step does. `value_and_grad` and the training step
-    take `path` and `volpath` only (ROADMAP.md queue 1, item 12).
+    take every one of them (GRADIENT_INTEGRATORS).
     spectral=True renders with 60-bin sampled-spectrum transport
     (`upload(spectral=True)`; tables handed over are switched to it); an
     integrator outside the spectral families warns and renders in RGB."""
@@ -842,27 +846,29 @@ class Renderer:
         to tensors that replace the renderer's tables; `grads` maps the same
         names to tensors of the same shapes. `loss(film) -> scalar tensor`
         reads the `Film` (`sum(film.rgb)` is what the bench differentiates);
-        the gradients reach it through `film.rgb`. `film` is the sample's
-        film, the same as `render` gives for this sample.
+        the gradients reach it through `film.rgb` and, under BDPT, through
+        the t == 1 strategies' `film.splat`. `film` is the sample's film,
+        the same as `render` gives for this sample. Every integrator
+        `Renderer` renders is differentiated, and every float table of the
+        DeviceScene, the medium tables (`med_sigma_a`, `med_sigma_s`,
+        `med_g`, `med_majorant`, `med_density`, `med_w2m`) included: a grid
+        medium's transmittance through K6's backward
+        (ops/media_tracking.py).
 
         Traversal is detached (the detached-sampling estimator). Pass 1
         renders every batch without autograd and with the counters off,
         recording each traversal's hits (integrators/replay.py), and takes
-        `dloss/dfilm.rgb` on the film alone. Pass 2 replays each batch's
-        shading chain with autograd on, over the recorded hits, and
-        back-propagates the film cotangent; each batch's graph is freed
+        `dloss/dfilm.rgb` and `dloss/dfilm.splat` on the film alone. Pass 2
+        replays each batch's shading chain with autograd on, over the
+        recorded hits, and back-propagates the film cotangents (K6, which
+        is not traversal, runs again, its backward with it); each batch's
+        graph is freed
         before the next is built. So the traversal kernels launch as often as
         in a forward sample, and memory holds one batch's graph and the
         recorded hits (about 30 B a ray a traversal)."""
-        self._refuse_gradients()
         unknown = sorted(set(params) - set(DeviceScene._fields))
         if unknown:
             raise KeyError(f"not fields of DeviceScene: {unknown}")
-        media = sorted(k for k in params if k.startswith("med_"))
-        if media:
-            raise NotImplementedError(
-                f"gradients with respect to the medium tables {media} are "
-                "not in the PyTorch port yet (ROADMAP.md queue 1, item 11)")
         sample_idx = int(sample_idx)
         leaves = {k: v.detach().to(self.device).requires_grad_()
                   for k, v in params.items()}
@@ -875,12 +881,15 @@ class Renderer:
                 film = self._step(film, sample_idx, b, ds=fixed,
                                   isect=rec.record, tables=tables,
                                   with_stats=False)
-        rgb = film.rgb.detach().requires_grad_()
+        films = {f: getattr(film, f).detach().requires_grad_()
+                 for f in ("rgb", "splat")}
         with torch.enable_grad():
-            value = loss(film._replace(rgb=rgb))
-            g_rgb = (torch.autograd.grad(value, rgb, allow_unused=True)[0]
-                     if value.requires_grad else None)
-        if g_rgb is not None:
+            value = loss(film._replace(**films))
+            cot = (torch.autograd.grad(value, list(films.values()),
+                                       allow_unused=True)
+                   if value.requires_grad else (None, None))
+        cot = {f: g for f, g in zip(films, cot) if g is not None}
+        if cot:
             replay = rec.replay()
             ds = self.ds._replace(**leaves)
             with torch.enable_grad():
@@ -889,21 +898,17 @@ class Renderer:
                     fb = self._step(self.new_film(), sample_idx, b, ds=ds,
                                     isect=replay, tables=tables,
                                     with_stats=False)
-                    if fb.rgb.requires_grad:
-                        torch.autograd.backward(fb.rgb, g_rgb,
-                                                inputs=list(leaves.values()))
-                    del fb
+                    outs = [(getattr(fb, f), g) for f, g in cot.items()
+                            if getattr(fb, f).requires_grad]
+                    if outs:
+                        torch.autograd.backward(
+                            [x for x, _ in outs], [g for _, g in outs],
+                            inputs=list(leaves.values()))
+                    del fb, outs
             replay.finish()
         grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
                  for k, v in leaves.items()}
         return value.detach(), grads, film
-
-    def _refuse_gradients(self):
-        name = self.scene.integrator.name
-        if name not in GRADIENT_INTEGRATORS:
-            raise NotImplementedError(
-                f"gradients of the {name!r} integrator are not in the "
-                "PyTorch port yet (ROADMAP.md queue 1, item 12)")
 
     def new_film(self):
         return filmmod.new_film(self.cfg.xres, self.cfg.yres, self.device)

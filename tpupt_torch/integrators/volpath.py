@@ -21,8 +21,10 @@ Medium decisions hash counters (core/rng.py) instead of drawing sampler
 dimensions, so the sampler's dimension layout is path_li's. In spectral
 transport the medium tables are uplifted once, so Beer-Lambert
 exponentiates per bin. Grid-medium tracking runs in kernel K6 on the card
-(ops/media_tracking.py); its results carry no gradient through the ray's
-origin and direction.
+(ops/media_tracking.py), its transmittance's gradient in K6's backward.
+Every medium table and every lane's origin and direction reach
+`tr_lane` / `sample_distance_lane` with their gradients, as in jax.grad of
+the JAX package's volpath; only the traversal's inputs are detached.
 """
 
 from __future__ import annotations

@@ -126,15 +126,21 @@ def hg_sample(axis, u1, u2, g: float):
 # ----------------------- one global medium (tools) --------------------------
 
 
-def _trilinear(d_at, ix, iy, iz, fx, fy, fz):
-    """grid.cpp D() interpolation of the eight texels around a point."""
-    d00 = d_at(ix, iy, iz) * (1 - fx) + d_at(ix + 1, iy, iz) * fx
-    d10 = d_at(ix, iy + 1, iz) * (1 - fx) + d_at(ix + 1, iy + 1, iz) * fx
-    d01 = d_at(ix, iy, iz + 1) * (1 - fx) + d_at(ix + 1, iy, iz + 1) * fx
-    d11 = (d_at(ix, iy + 1, iz + 1) * (1 - fx)
-           + d_at(ix + 1, iy + 1, iz + 1) * fx)
+def _lerp8(v, fx, fy, fz):
+    """grid.cpp D() interpolation of the eight corner values v (x fastest,
+    then y, z)."""
+    d00 = v[0] * (1 - fx) + v[1] * fx
+    d10 = v[2] * (1 - fx) + v[3] * fx
+    d01 = v[4] * (1 - fx) + v[5] * fx
+    d11 = v[6] * (1 - fx) + v[7] * fx
     return ((d00 * (1 - fy) + d10 * fy) * (1 - fz)
             + (d01 * (1 - fy) + d11 * fy) * fz)
+
+
+def _trilinear(d_at, ix, iy, iz, fx, fy, fz):
+    """grid.cpp D() interpolation of the eight texels around a point."""
+    return _lerp8([d_at(ix + dx, iy + dy, iz + dz) for dz in (0, 1)
+                   for dy in (0, 1) for dx in (0, 1)], fx, fy, fz)
 
 
 def grid_density(mp: MediumParams, p_world):
@@ -288,32 +294,45 @@ def tracking_constants(mt: MediaTable):
     return inv_max, sig_mean
 
 
-def grid_density_lane(mt: MediaTable, mi, p_world):
-    """Per-lane trilinear density from the atlas (grid.cpp Density): lane
-    n reads medium mi[n] at p_world[n]. The world-to-medium product is
-    written term by term, in the order the kernel computes it."""
+def _corners(mt: MediaTable, mi, p):
+    """The eight texels of the trilinear lookup (grid.cpp Density) of
+    medium mi[n] at the point (p[0][n], p[1][n], p[2][n]): (values [8], 0
+    outside the grid; flat atlas indices [8]; inside masks [8]; fractions
+    [fx, fy, fz]; the lanes' world-to-medium matrices), corners x fastest,
+    then y, z. The world-to-medium product is written term by term, in the
+    order the kernel computes it."""
     w = mt.w2m[mi]
-    p0, p1, p2 = p_world[:, 0], p_world[:, 1], p_world[:, 2]
-    ph = [w[:, r, 0] * p0 + w[:, r, 1] * p1 + w[:, r, 2] * p2 + w[:, r, 3]
-          for r in range(3)]
+    ph = [w[:, r, 0] * p[0] + w[:, r, 1] * p[1] + w[:, r, 2] * p[2]
+          + w[:, r, 3] for r in range(3)]
     dims = mt.dens_dims[mi]
     nx, ny, nz = dims[:, 0], dims[:, 1], dims[:, 2]
     off = mt.dens_off[mi]
     g = [ph[0] * nx - 0.5, ph[1] * ny - 0.5, ph[2] * nz - 0.5]
     gi = [torch.floor(x) for x in g]
-    gf = [x - xi for x, xi in zip(g, gi)]
-
-    def d_at(ix, iy, iz):
-        inside = ((ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny)
-                  & (iz >= 0) & (iz < nz))
-        ix = torch.minimum(ix.clamp_min(0), nx - 1)
-        iy = torch.minimum(iy.clamp_min(0), ny - 1)
-        iz = torch.minimum(iz.clamp_min(0), nz - 1)
-        idx = off + (iz * ny + iy) * nx + ix
-        return torch.where(inside, mt.density[idx.long()], 0.0)
-
+    frac = [x - xi for x, xi in zip(g, gi)]
     ix, iy, iz = (x.to(torch.int32) for x in gi)
-    return _trilinear(d_at, ix, iy, iz, *gf)
+    vals, idxs, ins = [], [], []
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                jx, jy, jz = ix + dx, iy + dy, iz + dz
+                inside = ((jx >= 0) & (jx < nx) & (jy >= 0) & (jy < ny)
+                          & (jz >= 0) & (jz < nz))
+                jx = torch.minimum(jx.clamp_min(0), nx - 1)
+                jy = torch.minimum(jy.clamp_min(0), ny - 1)
+                jz = torch.minimum(jz.clamp_min(0), nz - 1)
+                idx = (off + (jz * ny + jy) * nx + jx).long()
+                vals.append(torch.where(inside, mt.density[idx], 0.0))
+                idxs.append(idx)
+                ins.append(inside)
+    return vals, idxs, ins, frac, w
+
+
+def grid_density_lane(mt: MediaTable, mi, p_world):
+    """Per-lane trilinear density from the atlas (grid.cpp Density): lane
+    n reads medium mi[n] at p_world[n]."""
+    tv, _, _, frac, _ = _corners(mt, mi, [p_world[:, a] for a in range(3)])
+    return _lerp8(tv, *frac)
 
 
 def tr_grid_plain(mt: MediaTable, mi, o, d, t_c, keys):
@@ -323,16 +342,136 @@ def tr_grid_plain(mt: MediaTable, mi, o, d, t_c, keys):
     whose result is not used at once)."""
     inv_max_m, sig_mean_m = tracking_constants(mt)
     inv_max, sig_mean = inv_max_m[mi], sig_mean_m[mi]
+    zero = t_c.new_zeros(())
     trg = torch.ones_like(t_c)
     t = torch.zeros_like(t_c)
     for k in range(TR_STEPS):
         u = rng.uniform_float(keys, k, TR_WORD)
         t = t - torch.log(1.0 - u) * inv_max
         dens = grid_density_lane(mt, mi, o + t[..., None] * d)
+        # torch.maximum, not clamp_min: at x == 0 (an empty texel) its
+        # derivative is 1/2, as jnp.maximum's in the JAX package
         trg = trg * torch.where(
-            t < t_c, 1.0 - torch.clamp_min(dens * sig_mean * inv_max, 0.0),
+            t < t_c, 1.0 - torch.maximum(dens * sig_mean * inv_max, zero),
             1.0)
     return trg
+
+
+# the per-lane outputs of ratio tracking's backward, by column of (N, 20):
+# the origin's and the direction's gradients, those of the lane's
+# 1 / majorant and mean extinction, and of the first three rows of its
+# world-to-medium matrix (row-major, 4 a row)
+TR_BWD_O, TR_BWD_D, TR_BWD_INV, TR_BWD_SIG, TR_BWD_W2M = 0, 3, 6, 7, 8
+TR_BWD_COLS = 20
+
+
+def tr_grid_backward_plain(mt: MediaTable, mi, o, d, t_c, keys, g_trg,
+                           live=None):
+    """The plain version of K6's ratio-tracking backward: the adjoint of
+    `tr_grid_plain` for the cotangent g_trg (N,) of its transmittance,
+    written out step by step (not autograd), in the order the kernel
+    computes it. Returns (g_lane (N, TR_BWD_COLS), g_density (T,)): per
+    lane the gradients with respect to o, d, the lane's 1 / majorant and
+    mean extinction and its world-to-medium rows (columns TR_BWD_*), and
+    the density atlas's gradient, summed over the lanes. Lanes outside
+    `live` (N,) bool get zeros (the kernel does not compute them).
+
+    With x_k = dens_k * sig_mean * inv_max at the step's point p_k = o +
+    t_k d (t_k = inv_max * S_k, S_k the sum of the first k exponential
+    draws) and the factor f_k = 1 - max(x_k, 0) of each step before t_c,
+    the transmittance is the product of the f_k. The cotangent of f_k is
+    g_trg times the product of the other factors, taken as the product of
+    the factors before k (the transmittance before the step, kept from the
+    forward walk) times that of the factors after k (accumulated into the
+    cotangent walking back); never as trg / f_k, since a factor is exactly
+    0 wherever x_k >= 1. max's derivative is 1/2 at x == 0 (jnp.maximum's
+    rule); floor's is 0, and a texel outside the grid gets nothing."""
+    inv_max_m, sig_mean_m = tracking_constants(mt)
+    inv_max, sig_mean = inv_max_m[mi], sig_mean_m[mi]
+    zero = t_c.new_zeros(())
+    g = g_trg if live is None else torch.where(live, g_trg, zero)
+    # the forward walk: each step's t, sum of draws, and the transmittance
+    # before it
+    ts, ss, ps, acts = [], [], [], []
+    trg = torch.ones_like(t_c)
+    t = torch.zeros_like(t_c)
+    s = torch.zeros_like(t_c)
+    for k in range(TR_STEPS):
+        u = rng.uniform_float(keys, k, TR_WORD)
+        lg = torch.log(1.0 - u)
+        t = t - lg * inv_max
+        s = s - lg
+        act = t < t_c
+        dens = grid_density_lane(mt, mi, o + t[..., None] * d)
+        f = 1.0 - torch.maximum(dens * sig_mean * inv_max, zero)
+        ts.append(t)
+        ss.append(s)
+        ps.append(trg)
+        acts.append(act)
+        trg = torch.where(act, trg * f, trg)
+    # the walk back
+    c = g
+    acc_o = [torch.zeros_like(t_c) for _ in range(3)]
+    acc_d = [torch.zeros_like(t_c) for _ in range(3)]
+    acc_w = [torch.zeros_like(t_c) for _ in range(12)]
+    acc_inv = torch.zeros_like(t_c)
+    acc_sig = torch.zeros_like(t_c)
+    g_dens = torch.zeros_like(mt.density)
+    dims = mt.dens_dims[mi]
+    for k in reversed(range(TR_STEPS)):
+        t, act = ts[k], acts[k]
+        p = [o[:, a] + t * d[:, a] for a in range(3)]
+        tv, idx, ins, (fx, fy, fz), w = _corners(mt, mi, p)
+        ex, ey, ez = 1.0 - fx, 1.0 - fy, 1.0 - fz
+        d00 = tv[0] * ex + tv[1] * fx
+        d10 = tv[2] * ex + tv[3] * fx
+        d01 = tv[4] * ex + tv[5] * fx
+        d11 = tv[6] * ex + tv[7] * fx
+        lo = d00 * ey + d10 * fy
+        hi = d01 * ey + d11 * fy
+        dens = lo * ez + hi * fz
+        a = dens * sig_mean
+        x = a * inv_max
+        f = 1.0 - torch.maximum(x, zero)
+        gf = c * ps[k]
+        c = torch.where(act, c * f, c)
+        m = torch.where(x > 0.0, 1.0, torch.where(x == 0.0, 0.5, 0.0))
+        gx = -(gf * m)
+        acc_inv = torch.where(act, acc_inv + gx * a, acc_inv)
+        ga = gx * inv_max
+        acc_sig = torch.where(act, acc_sig + ga * dens, acc_sig)
+        gdn = ga * sig_mean
+        glo = gdn * ez
+        ghi = gdn * fz
+        gfz = gdn * (hi - lo)
+        gd = [glo * ey, glo * fy, ghi * ey, ghi * fy]
+        gfy = glo * (d10 - d00) + ghi * (d11 - d01)
+        gfx = (gd[0] * (tv[1] - tv[0]) + gd[1] * (tv[3] - tv[2])
+               + gd[2] * (tv[5] - tv[4]) + gd[3] * (tv[7] - tv[6]))
+        for j in range(8):
+            gt = gd[j // 2] * (fx if j % 2 else ex)
+            keep = act & ins[j] if live is None else act & ins[j] & live
+            g_dens.index_add_(0, idx[j], torch.where(keep, gt, zero))
+        gph = [gfx * dims[:, 0], gfy * dims[:, 1], gfz * dims[:, 2]]
+        for r in range(3):
+            for col in range(3):
+                acc_w[4 * r + col] = torch.where(
+                    act, acc_w[4 * r + col] + gph[r] * p[col],
+                    acc_w[4 * r + col])
+            acc_w[4 * r + 3] = torch.where(act, acc_w[4 * r + 3] + gph[r],
+                                           acc_w[4 * r + 3])
+        gp = [gph[0] * w[:, 0, col] + gph[1] * w[:, 1, col]
+              + gph[2] * w[:, 2, col] for col in range(3)]
+        for col in range(3):
+            acc_o[col] = torch.where(act, acc_o[col] + gp[col], acc_o[col])
+            acc_d[col] = torch.where(act, acc_d[col] + gp[col] * t,
+                                     acc_d[col])
+        gt_k = gp[0] * d[:, 0] + gp[1] * d[:, 1] + gp[2] * d[:, 2]
+        acc_inv = torch.where(act, acc_inv + gt_k * ss[k], acc_inv)
+    g_lane = torch.stack(acc_o + acc_d + [acc_inv, acc_sig] + acc_w, -1)
+    if live is not None:
+        g_lane = torch.where(live[:, None], g_lane, zero)
+    return g_lane, g_dens
 
 
 def sample_distance_grid_plain(mt: MediaTable, mi, o, d, t_c, keys):
@@ -367,14 +506,27 @@ def _kernel():
     return media_tracking
 
 
+def _max(x, c: float):
+    """max(x, c) with jnp.maximum's derivative (1/2 to each side at a tie;
+    clamp_min gives x all of it)."""
+    return torch.maximum(x, x.new_tensor(c))
+
+
+def _t_clamped(t):
+    return torch.minimum(t, t.new_tensor(T_CLAMP))
+
+
 def tr_lane(mt: MediaTable, any_grid: bool, med, o, d, t_max, u_keys):
     """Per-lane transmittance (N, C) for medium ids med (N,) (-1 = vacuum:
     1): Beer-Lambert in a homogeneous medium, ratio tracking over the atlas
     in a grid one (its scalar repeated over the channels; K6's `tr_grid`,
-    which runs `tr_grid_plain` for CPU tensors)."""
+    which runs `tr_grid_plain` for CPU tensors). Differentiable with
+    respect to o, d and every float table of `mt`, as jax.grad of the JAX
+    package's tr_lane: the grid lanes through K6's backward (ops/
+    media_tracking.py `TrGrid`)."""
     mi = med.clamp_min(0).long()
     sigma_t = mt.sigma_a[mi] + mt.sigma_s[mi]
-    t_c = t_max.clamp_max(T_CLAMP)
+    t_c = _t_clamped(t_max)
     tr = torch.exp(-sigma_t * t_c[..., None])
     if any_grid:
         grid = mt.is_grid[mi] & (med >= 0)
@@ -389,25 +541,27 @@ def sample_distance_lane(mt: MediaTable, any_grid: bool, med, o, d, t_surf,
     vacuum lanes never interact. Returns (interacted (N,), t_m (N,),
     weight (N, C)). Grid lanes take K6's `sample_distance_grid` (its plain
     version for CPU tensors); t_m of a vacuum lane is its medium-0
-    homogeneous draw (unused)."""
+    homogeneous draw (unused). Differentiable as jax.grad of the JAX
+    package's sample_distance_lane: the homogeneous t_m, pdfs and weights
+    with respect to the sigma tables, a grid lane's t with respect to its
+    majorant (`SampleDistanceGrid`), its weight to the sigma tables."""
     mi = med.clamp_min(0).long()
     sigma_s = mt.sigma_s[mi]
     sigma_t = mt.sigma_a[mi] + sigma_s
     nch = sigma_t.shape[-1]
-    t_c = t_surf.clamp_max(T_CLAMP)
+    t_c = _t_clamped(t_surf)
 
     # homogeneous: channel-balanced exponential (homogeneous.cpp:49-77)
     ch = (u1 * nch).to(torch.int32).clamp_max(nch - 1)
     s_ch = sigma_t.gather(1, ch.long()[:, None])[:, 0]
     u2 = rng.uniform_float(u_keys, HOMOGENEOUS_WORD)
-    t_m = (-torch.log(torch.clamp_min(1.0 - u2, 1e-9))
-           / torch.clamp_min(s_ch, 1e-9))
+    t_m = -torch.log(_max(1.0 - u2, 1e-9)) / _max(s_ch, 1e-9)
     interacted = t_m < t_c
     tr = torch.exp(-sigma_t * torch.minimum(t_m, t_c)[..., None])
     pdf_m = torch.mean(sigma_t * tr, -1)
     pdf_s = torch.mean(tr, -1)
-    w_m = tr * sigma_s / torch.clamp_min(pdf_m, 1e-12)[..., None]
-    w_s = tr / torch.clamp_min(pdf_s, 1e-12)[..., None]
+    w_m = tr * sigma_s / _max(pdf_m, 1e-12)[..., None]
+    w_s = tr / _max(pdf_s, 1e-12)[..., None]
     weight = torch.where(interacted[..., None], w_m, w_s)
 
     if any_grid:
@@ -415,7 +569,7 @@ def sample_distance_lane(mt: MediaTable, any_grid: bool, med, o, d, t_surf,
         inter_g, t_g = _kernel().sample_distance_grid(mt, mi, o, d, t_c,
                                                       u_keys, grid)
         w_g = torch.where(inter_g[..., None],
-                          sigma_s / torch.clamp_min(sigma_t, 1e-9), 1.0)
+                          sigma_s / _max(sigma_t, 1e-9), 1.0)
         interacted = torch.where(grid, inter_g, interacted)
         t_m = torch.where(grid, t_g, t_m)
         weight = torch.where(grid[..., None], w_g, weight)

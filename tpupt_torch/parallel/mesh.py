@@ -277,8 +277,8 @@ def train_step_fn(scene, mesh, target, device="cuda", tables=None,
     radiance against `target` -> reverse-mode gradients with respect to the
     parameter tables (traversal detached) -> SGD update.
 
-    The scene's integrator is `path` or `volpath`; the others raise
-    NotImplementedError (ROADMAP.md queue 1, item 12).
+    Every integrator `Renderer` renders is differentiated
+    (GRADIENT_INTEGRATORS in integrators/path.py).
 
     `mesh`: a `Mesh` (make_mesh) to shard the step's batches over, each
     rank taking its own as the sharded renderer does; or None, or a
@@ -291,7 +291,10 @@ def train_step_fn(scene, mesh, target, device="cuda", tables=None,
     (spectral or RGB), and bad samples (non-finite, or of luminance below
     -1e-5) black. The JAX package's step calls its path integrator in RGB
     whatever the scene and compares the raw radiance (ROADMAP.md section
-    3).
+    3). Under BDPT the per-ray radiance leaves out the t == 1 strategies,
+    which splat onto other pixels and have no camera ray of their own: the
+    loss compares the camera rays' part of the image only (ROADMAP.md
+    section 3).
 
     Returns (step, params0): `step(params, sample_idx, lr) -> (loss,
     new_params)`, `params0` the scene's own tables by the names of `PARAMS`.
@@ -312,7 +315,6 @@ def train_step_fn(scene, mesh, target, device="cuda", tables=None,
                                              else device))
     base = Renderer(scene, device=mesh.device, tables=tables,
                     spectral=spectral)
-    base._refuse_gradients()
     if mesh.size > 1:
         base.set_batch(sharded_batch(base.n_pixels, mesh.size))
     mine = range(mesh.rank, base.n_batches, mesh.size)
@@ -330,8 +332,9 @@ def train_step_fn(scene, mesh, target, device="cuda", tables=None,
         with torch.enable_grad():
             tables = (tri_shade_table(ds), sph_shade_table(ds))
             for b in mine:
-                _, L, _ = base._radiance(ds, sample_idx, b,
-                                         tables=tables, with_stats=False)
+                # (BDPT's splats, the fourth value, are left out)
+                _, L, *_ = base._radiance(ds, sample_idx, b,
+                                          tables=tables, with_stats=False)
                 pix = base._py_b[b] * cfg.xres + base._px_b[b]
                 tgt = target[pix.long()]
                 err = torch.where(base._valid_b[b][:, None], L - tgt, 0.0)
