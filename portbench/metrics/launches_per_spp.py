@@ -1,0 +1,9 @@
+"""Device launches (kernels, copies, fills) the profiler records in a
+traced stretch of rendered samples, per sample."""
+
+
+def read(ctx):
+    tr = ctx.get("trace")
+    if ctx["kind"] != "render" or not tr or tr.get("kernels") is None:
+        return None
+    return tr["launches"] / tr["units"]
