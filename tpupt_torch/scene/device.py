@@ -34,6 +34,7 @@ from tpupt_torch.core.sampling import build_distribution2d
 from tpupt_torch.media.media import build_media_table
 from tpupt_torch.scene.flatten import FlatScene
 from tpupt_torch.textures.textures import present_types
+from tpupt_torch.utils import logging as tlog
 
 # above this many prims the serial sweep-SAH build (O(n log^2 n)) gives
 # way to the vectorized LBVH
@@ -443,7 +444,8 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
     (the path and volpath integrators then carry 60-bin sampled spectra)."""
     t, s, m, lt = scene.triangles, scene.spheres, scene.materials, scene.lights
     if bvh is None:
-        bvh = build_scene_bvh(scene)
+        with tlog.annotate("upload.bvh"):
+            bvh = build_scene_bvh(scene)
     wlo, whi = scene.world_bounds()
     wide_nodes, _ = collapse_to_wide(bvh)
     prim_rows = pack_prim_rows(scene, bvh.prim_ids)
@@ -459,7 +461,8 @@ def host_tables(scene: FlatScene, bvh: BVHArrays = None,
         # fatter leaves under treelets, as the JAX package collapses them
         wide_nodes, _ = collapse_to_wide(bvh, leaf_merge=8)
         tn, tp = treelet_budget or (TREELET_NODES, TREELET_PRIMS)
-        tla = build_treelets(wide_nodes, prim_rows, tn, tp)
+        with tlog.annotate("upload.treelets"):
+            tla = build_treelets(wide_nodes, prim_rows, tn, tp)
 
     # the per-interface media table (one-row dummies without media) and
     # each prim's MediumInterface in global prim order
@@ -735,10 +738,14 @@ def upload(scene: FlatScene, bvh: BVHArrays = None,
            spectral: bool = False):
     """Build (DeviceScene, SceneStatics) from a flattened scene on `device`.
     With device="cuda" and no card this raises; it never drops to the CPU.
-    two_level / treelet_budget / spectral: see `host_tables`."""
-    fields, statics = host_tables(scene, bvh, light_strategy, two_level,
-                                  treelet_budget, spectral)
-    return _to_device(fields, device), statics
+    two_level / treelet_budget / spectral: see `host_tables`. Spans:
+    `upload.tables` (`host_tables`, holding `upload.bvh` and
+    `upload.treelets`: its own time is the rest) and `upload.copy`."""
+    with tlog.annotate("upload.tables"):
+        fields, statics = host_tables(scene, bvh, light_strategy, two_level,
+                                      treelet_budget, spectral)
+    with tlog.annotate("upload.copy"):
+        return _to_device(fields, device), statics
 
 
 def with_alt_accel(ds: DeviceScene, st: SceneStatics, nodes: dict, dirs):

@@ -27,6 +27,7 @@ from tpupt_torch.scene import quadrics, subdiv
 from tpupt_torch.scene.params import ParamSet
 from tpupt_torch.scene.plyio import read_ply
 from tpupt_torch.textures.textures import TextureTable, load_image
+from tpupt_torch.utils import logging as tlog
 
 # --- enums (device-side type ids) ---
 
@@ -786,7 +787,13 @@ def _shape_to_mesh(rec: ShapeRecord, scene_dir: str):
 
 
 def flatten(desc: SceneDescription, scene_dir: str = ".") -> FlatScene:
-    """Bake the parsed scene into flat world-space tensors."""
+    """Bake the parsed scene into flat world-space tensors, in a
+    `scene.flatten` span."""
+    with tlog.annotate("scene.flatten"):
+        return _flatten(desc, scene_dir)
+
+
+def _flatten(desc: SceneDescription, scene_dir: str) -> FlatScene:
     # 1. instantiate objects (TransformedPrimitive flattening)
     all_shapes: List[ShapeRecord] = list(desc.shapes)
     for inst in desc.instances:

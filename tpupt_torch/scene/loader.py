@@ -13,6 +13,7 @@ from typing import List, Optional
 from tpupt_torch.scene.api import SceneBuilder, SceneDescription
 from tpupt_torch.scene.params import ParamSet
 from tpupt_torch.scene.tokenizer import Token, tokenize
+from tpupt_torch.utils import logging as tlog
 
 
 class _TokenStream:
@@ -171,11 +172,13 @@ def parse_string(text: str, filename: str = "<string>",
 
 
 def parse_file(path: str, subst=None) -> SceneDescription:
-    ts = _TokenStream()
-    with open(path, "r", errors="replace") as f:
-        ts.push_file(list(tokenize(_substitute(f.read(), subst), path)))
-    root = os.path.dirname(os.path.abspath(path))
-    return _parse(ts, root, root)
+    """The scene file `path` parsed, in a `scene.parse` span."""
+    with tlog.annotate("scene.parse"):
+        ts = _TokenStream()
+        with open(path, "r", errors="replace") as f:
+            ts.push_file(list(tokenize(_substitute(f.read(), subst), path)))
+        root = os.path.dirname(os.path.abspath(path))
+        return _parse(ts, root, root)
 
 
 def _parse(ts: _TokenStream, current_dir: str, root_dir: str) -> SceneDescription:

@@ -26,7 +26,9 @@ prints nothing but errors (warnings off); --stats prints the render's
 statistics (and turns the traversal counters on); --cat prints the parsed
 scene as canonical pbrt statements and exits, --toply too, with each inline
 trianglemesh written to a binary PLY sidecar in the current directory;
---profile writes a torch.profiler trace of the render into DIR; --logfile /
+--profile writes a torch.profiler trace of the render into DIR, the
+program's spans (`render.sample`, `path_li`, `traverse`, ...) on a track of
+their own; --logfile /
 --loglevel route and filter the log lines (utils/logging.py).
 
 --accelerator overrides the scene's `Accelerator` line. --dumptree writes the

@@ -9,6 +9,8 @@ import os
 import shutil
 import subprocess
 
+from tpupt_torch.utils import logging as tlog
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "build")
 
@@ -69,10 +71,11 @@ def cuda_library(name: str) -> str:
 def build_cuda(name: str, extra_flags=(), out: str = None):
     """Compile csrc/<name>.cu into a shared library with nvcc. Returns (path,
     what nvcc printed). `extra_flags` come after NVCC_FLAGS, so a later
-    -fmad wins."""
+    -fmad wins. A `build.nvcc` span (kind: `name`)."""
     out = out or cuda_library(name)
-    log = compile_shared([find_nvcc()] + NVCC_FLAGS + list(extra_flags),
-                         cuda_source(name + ".cu"), out)
+    with tlog.annotate("build.nvcc", kind=name):
+        log = compile_shared([find_nvcc()] + NVCC_FLAGS + list(extra_flags),
+                             cuda_source(name + ".cu"), out)
     return out, log
 
 
